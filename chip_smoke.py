@@ -11,9 +11,9 @@ JAX, and:
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the TPS kernels (`csrc/tps.cu`, nvcc for sm_90a) from the sources;
 3. kernel phase: at 640x480 on a synthetic frame, holds each kernel
-   (`tps_phase`, `tps_merge`) against its plain PyTorch version on the same
-   inputs, and the kernel-backed TPS segmentation against the plain one,
-   and times kernel, plain version, bound and library yardstick;
+   (`tps_iteration`, `tps_merge`) against its plain PyTorch version on the
+   same inputs, and the kernel-backed TPS segmentation against the plain
+   one, and times kernel, plain version, bound and library yardstick;
 4. pipeline phase: drives the default `PipelineConfig` frame step through
    `SupersurfelFusion` on a synthetic clip with a known trajectory, counts
    the kernel launches, checks tracking, and holds the first frames against
@@ -40,6 +40,10 @@ N_FRAMES = 30         # pipeline phase frames
 N_CPU_FRAMES = 3      # frames also run on the plain CPU path
 H100_HBM_BPS = 3.35e12
 H100_FP32_FLOPS = 67e12
+# device time per call of the earlier kernels these replace (the per-phase
+# design, on an NVIDIA H100 80GB HBM3, 700.00 W): an iteration was 4
+# tps_phase launches
+EARLIER_US = {"tps_iteration": 4 * 8.30, "tps_merge": 14.55}
 
 _T0 = time.time()
 
@@ -191,22 +195,23 @@ def kernel_phase(dev):
     table_d = tps_cuda.merge_reference(rgb_chw, disp, labels, inliers, table,
                                        True, cs)
 
-    # tps_phase: exact agreement expected (same arithmetic, no fma)
-    phase_err = 0.0
+    # tps_iteration: exact agreement with four phases of the plain version
+    # (same arithmetic, no fma)
+    iter_err = 0.0
     for use_disp, tab in ((False, table), (True, table_d)):
-        for ph in range(4):
-            lk, ik = tps_cuda.tps_phase(rgb_chw, disp, labels, inliers, tab,
-                                        ph, use_disp, tcfg)
-            lp, ip = tps_cuda.phase_reference(rgb_chw, disp, labels, inliers,
-                                              tab, ph, use_disp, tcfg)
-            n_lab = int((lk != lp).sum())
-            n_inl = int((ik != ip).sum())
-            phase_err = max(phase_err, float((lk - lp).abs().max()),
-                            float((ik - ip).abs().max()))
-            log(f"  tps_phase use_disp={use_disp} phase={ph}: "
-                f"{n_lab} label and {n_inl} inlier mismatches")
-            check(n_lab <= 0.0005 * H * W and n_inl <= 0.0005 * H * W,
-                  f"tps_phase ({use_disp}, {ph}) matches plain version")
+        lk, ik = tps_cuda.tps_iteration(rgb_chw, disp, labels, inliers, tab,
+                                        use_disp, tcfg)
+        lp, ip = tps_cuda.iteration_reference(rgb_chw, disp, labels, inliers,
+                                              tab, use_disp, tcfg)
+        n_lab = int((lk != lp).sum())
+        n_inl = int((ik != ip).sum())
+        n_moved = int((lp != labels).sum())
+        iter_err = max(iter_err, float((lk - lp).abs().max()),
+                       float((ik - ip).abs().max()))
+        log(f"  tps_iteration use_disp={use_disp}: {n_lab} label and "
+            f"{n_inl} inlier mismatches ({n_moved} labels moved)")
+        check(n_lab == 0 and n_inl == 0,
+              f"tps_iteration ({use_disp}) equals four plain phases")
 
     # tps_merge: sums in another order; stats and plane disparity at the
     # centroid held to f32 summation tolerance
@@ -241,13 +246,13 @@ def kernel_phase(dev):
 
     # times: kernel, plain version, library yardstick. Device time from
     # CUDA-graph replays; the eager per-call time is printed beside it
-    def phase_k():
-        tps_cuda.tps_phase(rgb_chw, disp, labels, inliers, table_d, 0, True,
-                           tcfg)
+    def iter_k():
+        tps_cuda.tps_iteration(rgb_chw, disp, labels, inliers, table_d, True,
+                               tcfg)
 
-    def phase_p():
-        tps_cuda.phase_reference(rgb_chw, disp, labels, inliers, table_d, 0,
-                                 True, tcfg)
+    def iter_p():
+        tps_cuda.iteration_reference(rgb_chw, disp, labels, inliers, table_d,
+                                     True, tcfg)
 
     def merge_k():
         tps_cuda.tps_merge(rgb_chw, disp, labels, inliers, table_d, True, cs)
@@ -268,44 +273,57 @@ def kernel_phase(dev):
     def scatter():
         acc.zero_().scatter_add_(0, idx, feats)
 
-    ms_phase = graph_time_ms(phase_k, 100)
-    ms_phase_plain = graph_time_ms(phase_p, 10)
+    ms_iter = graph_time_ms(iter_k, 100)
+    ms_iter_plain = graph_time_ms(iter_p, 3)
     ms_merge = graph_time_ms(merge_k, 100)
     ms_merge_plain = graph_time_ms(merge_p, 10)
     ms_scatter = graph_time_ms(scatter, 100)
-    eager_phase = cuda_time_ms(phase_k, 100)
+    eager_iter = cuda_time_ms(iter_k, 100)
     eager_merge = cuda_time_ms(merge_k, 100)
     ms_seg = cuda_time_ms(lambda: tps_cuda.segment(rgb, disp, tcfg), 5)
     ms_seg_plain = cuda_time_ms(
         lambda: tps_cuda.segment_reference(rgb, disp, tcfg), 3)
 
     # bounds from this run's shapes: each input read once, each output
-    # written once; operations counted from the data where they depend on it
+    # written once; operations counted from the data where they depend on
+    # it. The timed iteration is an RGBD one, which reads no inliers (each
+    # pixel's inlier bit is the plane test of its final label): rgb, disp
+    # and labels in, labels and inliers out, the table once.
     npx = H * W
     tab_bytes = 9 * gh * gw * 4
-    phase_bytes = npx * (3 * 4 + 4 + 4 + 4) + tab_bytes + npx * (4 + 4)
+    iter_bytes = npx * (3 * 4 + 4 + 4) + tab_bytes + npx * (4 + 4)
+    # each pixel is decided in one phase of the four: a 12-read stencil and
+    # the inlier test, and on boundary pixels up to 5 energies of ~45 ops
     b = tps_ref.boundary_count(labels) > 0
-    phase_ops = 40 * npx + 4 * 40 * int(b.sum()) // 4
-    merge_bytes = npx * (3 * 4 + 4 + 4 + 4) + 2 * tab_bytes
+    iter_ops = 22 * npx + 5 * 45 * int(b.sum())
+    # the timed merge is an RGBD one: rgb, disp, labels and inliers in, the
+    # whole table out; it reads no table (an RGB merge would read the
+    # plane channels 6-8 to keep them)
+    merge_bytes = npx * (3 * 4 + 4 + 4 + 4) + tab_bytes
     merge_ops = 35 * npx
-    bound_phase = max(phase_bytes / H100_HBM_BPS,
-                      phase_ops / H100_FP32_FLOPS) * 1e3
+    bound_iter = max(iter_bytes / H100_HBM_BPS,
+                     iter_ops / H100_FP32_FLOPS) * 1e3
     bound_merge = max(merge_bytes / H100_HBM_BPS,
                       merge_ops / H100_FP32_FLOPS) * 1e3
-    log(f"  tps_phase {ms_phase * 1e3:.2f} us device (eager call "
-        f"{eager_phase * 1e3:.2f} us; plain {ms_phase_plain * 1e3:.1f} us, "
-        f"bound {bound_phase * 1e3:.2f} us)")
+    log(f"  tps_iteration {ms_iter * 1e3:.2f} us device (eager call "
+        f"{eager_iter * 1e3:.2f} us; plain {ms_iter_plain * 1e3:.1f} us, "
+        f"bound {bound_iter * 1e3:.2f} us, share of bound "
+        f"{bound_iter / ms_iter:.1%}; earlier: 4 x tps_phase = "
+        f"{EARLIER_US['tps_iteration']:.2f} us)")
     log(f"  tps_merge {ms_merge * 1e3:.2f} us device (eager call "
         f"{eager_merge * 1e3:.2f} us; plain {ms_merge_plain * 1e3:.1f} us, "
-        f"bound {bound_merge * 1e3:.2f} us, scatter_add_ "
-        f"{ms_scatter * 1e3:.2f} us)")
+        f"bound {bound_merge * 1e3:.2f} us, share of bound "
+        f"{bound_merge / ms_merge:.1%}; scatter_add_ "
+        f"{ms_scatter * 1e3:.2f} us; earlier: "
+        f"{EARLIER_US['tps_merge']:.2f} us)")
     log(f"  TPS segment: kernels {ms_seg:.3f} ms, plain {ms_seg_plain:.3f} ms")
     return {
-        "tps_phase": dict(max_abs_err=phase_err, ms=ms_phase,
-                          plain_ms=ms_phase_plain, bound_ms=bound_phase,
-                          bound_by="bytes" if phase_bytes / H100_HBM_BPS
-                          >= phase_ops / H100_FP32_FLOPS else "operations",
-                          library_ms=None),
+        "tps_iteration": dict(max_abs_err=iter_err, ms=ms_iter,
+                              plain_ms=ms_iter_plain, bound_ms=bound_iter,
+                              bound_by="bytes" if iter_bytes / H100_HBM_BPS
+                              >= iter_ops / H100_FP32_FLOPS
+                              else "operations",
+                              library_ms=None),
         "tps_merge": dict(max_abs_err=merge_err, ms=ms_merge,
                           plain_ms=ms_merge_plain, bound_ms=bound_merge,
                           bound_by="bytes" if merge_bytes / H100_HBM_BPS
@@ -343,8 +361,8 @@ def pipeline_phase(dev):
     peak = torch.cuda.max_memory_allocated()
 
     log(f"  launches {launches} over {N_FRAMES} frames")
-    check(launches["tps_phase"] == 40 * N_FRAMES,
-          "40 tps_phase launches per frame")
+    check(launches["tps_iteration"] == 10 * N_FRAMES,
+          "10 tps_iteration launches per frame")
     check(launches["tps_merge"] == 12 * N_FRAMES,
           "12 tps_merge launches per frame")
     steady = frame_s[2:]
@@ -412,7 +430,7 @@ def main() -> int:
     phase_done("pipeline", t0)
 
     rows = []
-    for name in ("tps_phase", "tps_merge"):
+    for name in ("tps_iteration", "tps_merge"):
         r = kern[name]
         rows.append({
             "name": name, "route": "cuda",

@@ -2,10 +2,12 @@
 
 Replaces the Pallas TPU kernel `run_iterations` of
 `supersurfel_fusion_tpu/ops/tps_pallas.py` (pl.pallas_call at :381) and its
-wrapper `segment` (:423-464). Two kernels, launched from a host loop:
+wrapper `segment` (:423-464). Two kernels, launched from a host loop, one
+of each per iteration:
 
-* `tps_phase`: one checkerboard phase of label reassignment (K1, with the
-  stat-image rebuild K3 folded in as a gather of the table by label);
+* `tps_iteration`: the four checkerboard phases of label reassignment of
+  one iteration (K1, with the stat-image rebuild K3 folded in as a lookup
+  of the table by label), in one launch;
 * `tps_merge`: per-superpixel statistics and, in the RGBD pass, the
   disparity-plane refit (K2).
 
@@ -15,7 +17,12 @@ fallback from one to the other. The library is compiled with nvcc for
 sm_90a at first use into `_build/`, keyed by the hash of the source and the
 flags, and bound with ctypes. State: labels (H, W) int32, inliers (H, W)
 f32 0/1 and the table (9, GH, GW) f32 = [cx, cy, r, g, b, n, ta, tb, tc];
-tc < -1e29 marks "no plane".
+tc < -1e29 marks "no plane". Every label lies in the 3x3 cell window of its
+pixel's cell, as the grid init and every phase keep it. The kernels rely on
+that: `tps_iteration` never offers a label outside it as a candidate, and
+freezes a pixel that holds one (kept, no inlier), where the plain version
+would still move it; `tps_merge` drops such a pixel, as the plain version
+does.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ NVCC_FLAGS = (
 
 # Launches of each kernel since the last reset (plain-version calls on CPU
 # tensors do not count).
-launch_counts = {"tps_phase": 0, "tps_merge": 0}
+launch_counts = {"tps_iteration": 0, "tps_merge": 0}
 
 _lib = None
 
@@ -100,10 +107,10 @@ def _library():
         path, _ = build_library()
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tps_phase_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                         i, f, f, f, f, f, f, p]
-        lib.tps_phase_launch.restype = i
-        lib.tps_merge_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.tps_iteration_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                             f, f, f, f, f, f, p]
+        lib.tps_iteration_launch.restype = i
+        lib.tps_merge_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.tps_merge_launch.restype = i
         _lib = lib
     return _lib
@@ -126,12 +133,20 @@ def _check_state(rgb_chw, disp, labels, inliers, table, cs):
     _, H, W = rgb_chw.shape
     if H % cs or W % cs:
         raise ValueError("image must tile by cell_size")
+    if cs % 4 or W % 4:
+        raise ValueError("the TPS kernels read 4 pixels at a time: "
+                         "cell_size and the width must be multiples of 4")
     dev = rgb_chw.device
     _check("rgb_chw", rgb_chw, torch.float32, (3, H, W), dev)
     _check("disp", disp, torch.float32, (H, W), dev)
     _check("labels", labels, torch.int32, (H, W), dev)
     _check("inliers", inliers, torch.float32, (H, W), dev)
     _check("table", table, torch.float32, (9, H // cs, W // cs), dev)
+    for name, t in (("rgb_chw", rgb_chw), ("disp", disp), ("labels", labels),
+                    ("inliers", inliers)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the TPS kernels need 16-byte aligned "
+                             "data (a fresh contiguous tensor)")
     return H, W
 
 
@@ -171,8 +186,9 @@ def merge_reference(rgb_chw: Tensor, disp: Tensor, labels: Tensor,
 def phase_reference(rgb_chw: Tensor, disp: Tensor, labels: Tensor,
                     inliers: Tensor, table: Tensor, phase: int,
                     use_disp: bool, cfg: TPSConfig):
-    """Plain version of `tps_phase`: `tps.phase_update` on the stat image
-    gathered from the table. Returns (labels, inliers f32)."""
+    """One checkerboard phase (order (0,0) (1,1) (0,1) (1,0) by `phase`):
+    `tps.phase_update` on the stat image gathered from the table. Returns
+    (labels, inliers f32)."""
     _, H, W = rgb_chw.shape
     cs = cfg.cell_size
     gh, gw = H // cs, W // cs
@@ -183,33 +199,45 @@ def phase_reference(rgb_chw: Tensor, disp: Tensor, labels: Tensor,
     return lab, inl.to(torch.float32)
 
 
+def iteration_reference(rgb_chw: Tensor, disp: Tensor, labels: Tensor,
+                        inliers: Tensor, table: Tensor, use_disp: bool,
+                        cfg: TPSConfig):
+    """Plain version of `tps_iteration`: the four phases in order, with
+    one table. Returns (labels, inliers f32)."""
+    for phase in range(4):
+        labels, inliers = phase_reference(rgb_chw, disp, labels, inliers,
+                                          table, phase, use_disp, cfg)
+    return labels, inliers
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def tps_phase(rgb_chw: Tensor, disp: Tensor, labels: Tensor, inliers: Tensor,
-              table: Tensor, phase: int, use_disp: bool, cfg: TPSConfig):
-    """One checkerboard phase (order (0,0) (1,1) (0,1) (1,0) by `phase`).
-    Returns new (labels, inliers); the inputs are not written."""
+def tps_iteration(rgb_chw: Tensor, disp: Tensor, labels: Tensor,
+                  inliers: Tensor, table: Tensor, use_disp: bool,
+                  cfg: TPSConfig):
+    """The four checkerboard phases of one iteration in one launch. Returns
+    new (labels, inliers); the inputs are not written. In the RGB pass the
+    inliers pass through and the same tensor is returned."""
     if rgb_chw.device.type == "cpu":
-        return phase_reference(rgb_chw, disp, labels, inliers, table, phase,
-                               use_disp, cfg)
+        return iteration_reference(rgb_chw, disp, labels, inliers, table,
+                                   use_disp, cfg)
     cs = cfg.cell_size
     H, W = _check_state(rgb_chw, disp, labels, inliers, table, cs)
     lib = _library()
     lab_out = torch.empty_like(labels)
-    inl_out = torch.empty_like(inliers)
-    off_x, off_y = tps_ref._PHASES[phase]
-    err = lib.tps_phase_launch(
+    inl_out = torch.empty_like(inliers) if use_disp else inliers
+    err = lib.tps_iteration_launch(
         rgb_chw.data_ptr(), disp.data_ptr(), labels.data_ptr(),
-        inliers.data_ptr(), table.data_ptr(), lab_out.data_ptr(),
-        inl_out.data_ptr(), H, W, cs, off_x, off_y, int(use_disp),
+        table.data_ptr(), lab_out.data_ptr(),
+        inl_out.data_ptr() if use_disp else None, H, W, cs, int(use_disp),
         cfg.lambda_pos, cfg.lambda_bound, cfg.lambda_size, cfg.lambda_disp,
         cfg.thresh_disp, cs * cs / 4.0,
         torch.cuda.current_stream(rgb_chw.device).cuda_stream)
-    _raise_on(err, "tps_phase")
-    launch_counts["tps_phase"] += 1
+    _raise_on(err, "tps_iteration")
+    launch_counts["tps_iteration"] += 1
     return lab_out, inl_out
 
 
@@ -221,11 +249,11 @@ def tps_merge(rgb_chw: Tensor, disp: Tensor, labels: Tensor, inliers: Tensor,
                                use_disp, cs)
     H, W = _check_state(rgb_chw, disp, labels, inliers, table, cs)
     lib = _library()
-    out = table.clone()
+    out = torch.empty_like(table)
     err = lib.tps_merge_launch(
         rgb_chw.data_ptr(), disp.data_ptr(), labels.data_ptr(),
-        inliers.data_ptr(), out.data_ptr(), H, W, cs, int(use_disp),
-        torch.cuda.current_stream(rgb_chw.device).cuda_stream)
+        inliers.data_ptr(), table.data_ptr(), out.data_ptr(), H, W, cs,
+        int(use_disp), torch.cuda.current_stream(rgb_chw.device).cuda_stream)
     _raise_on(err, "tps_merge")
     launch_counts["tps_merge"] += 1
     return out
@@ -236,14 +264,13 @@ def tps_merge(rgb_chw: Tensor, disp: Tensor, labels: Tensor, inliers: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _iterate(phase_fn, merge_fn, rgb_chw, disp, labels, inliers, table,
+def _iterate(iteration_fn, merge_fn, rgb_chw, disp, labels, inliers, table,
              n_iters, use_disp, cfg):
     cs = cfg.cell_size
     table = merge_fn(rgb_chw, disp, labels, inliers, table, use_disp, cs)
     for _ in range(n_iters):
-        for phase in range(4):
-            labels, inliers = phase_fn(rgb_chw, disp, labels, inliers, table,
-                                       phase, use_disp, cfg)
+        labels, inliers = iteration_fn(rgb_chw, disp, labels, inliers, table,
+                                       use_disp, cfg)
         table = merge_fn(rgb_chw, disp, labels, inliers, table, use_disp, cs)
     return labels, inliers, table
 
@@ -251,12 +278,12 @@ def _iterate(phase_fn, merge_fn, rgb_chw, disp, labels, inliers, table,
 def run_iterations(rgb_chw: Tensor, disp: Tensor, labels: Tensor,
                    inliers: Tensor, table: Tensor, n_iters: int,
                    use_disp: bool, cfg: TPSConfig):
-    """One merge, then `n_iters` x (4 phases + 1 merge), through the
+    """One merge, then `n_iters` x (1 iteration + 1 merge), through the
     kernels (CUDA tensors) or their plain versions (CPU tensors).
     rgb_chw (3, H, W) f32; disp (H, W) (inf marks invalid); labels (H, W)
     int32; inliers (H, W) f32 0/1; table (9, GH, GW) f32.
     Returns (labels, inliers, table)."""
-    return _iterate(tps_phase, tps_merge, rgb_chw, disp, labels, inliers,
+    return _iterate(tps_iteration, tps_merge, rgb_chw, disp, labels, inliers,
                     table, n_iters, use_disp, cfg)
 
 
@@ -264,8 +291,8 @@ def run_iterations_reference(rgb_chw: Tensor, disp: Tensor, labels: Tensor,
                              inliers: Tensor, table: Tensor, n_iters: int,
                              use_disp: bool, cfg: TPSConfig):
     """`run_iterations` on the plain versions, on any device."""
-    return _iterate(phase_reference, merge_reference, rgb_chw, disp, labels,
-                    inliers, table, n_iters, use_disp, cfg)
+    return _iterate(iteration_reference, merge_reference, rgb_chw, disp,
+                    labels, inliers, table, n_iters, use_disp, cfg)
 
 
 def stats_from_table(table: Tensor) -> tps_ref.SuperpixelStats:

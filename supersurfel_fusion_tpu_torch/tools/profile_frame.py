@@ -12,9 +12,10 @@ synthetic clip, then prints:
   profiler attached;
 * under `torch.profiler` over `--frames` frames: for each pipeline stage
   (the "ssf.<stage>" ranges of `pipeline.process_frame`) its host time and
-  the device time of the kernels it launched; the kernels with the most
-  device time; and the device's busy share of the window (kernel time over
-  wall time; the idle share is the rest).
+  the device time of the kernels the profiler links to it; the device time
+  it links to no stage; the kernels with the most device time; the TPS
+  kernels' device time and launches; and the device's busy share of the
+  window (kernel time over wall time; the idle share is the rest).
 
 It needs a CUDA device and fails without one.
 """
@@ -98,25 +99,45 @@ def main(argv=None) -> int:
               and e.device_type == DeviceType.CPU]
     per = args.frames
     print(f"profiled window: {wall_us / per / 1e3:.2f} ms/frame wall")
-    print(f"{'stage':<18}{'host ms/frame':>15}{'device ms/frame':>17}")
+    # "self": kernels linked to the range itself rather than to an op
+    # inside it
+    print(f"{'stage':<18}{'host ms/frame':>15}{'device ms/frame':>17}"
+          f"{'self':>8}")
     for e in sorted(stages, key=lambda e: -e.cpu_time_total):
         print(f"{e.key:<18}{e.cpu_time_total / per / 1e3:>15.3f}"
-              f"{_device_us(e, False) / per / 1e3:>17.3f}")
+              f"{_device_us(e, False) / per / 1e3:>17.3f}"
+              f"{_device_us(e, True) / per / 1e3:>8.3f}")
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA
                and not e.key.startswith("ssf.")]
     busy_us = sum(_device_us(e, True) for e in kernels)
     print(f"device busy {busy_us / per / 1e3:.3f} ms/frame = "
           f"{100 * busy_us / wall_us:.1f}% of the wall time "
           f"(idle {100 - 100 * busy_us / wall_us:.1f}%)")
+    # kernels the profiler links to no stage: those launched between the
+    # stages, and those launched outside PyTorch (the ctypes-bound TPS
+    # kernels, if the profiler cannot link them to the enclosing range)
+    staged_us = sum(_device_us(e, False) for e in stages)
+    print(f"device time in no stage's column: "
+          f"{(busy_us - staged_us) / per / 1e3:.3f} ms/frame")
     print("top kernels by device time (ms/frame, launches/frame):")
     for e in sorted(kernels, key=lambda e: -_device_us(e, True))[:15]:
+        print(f"  {_device_us(e, True) / per / 1e3:9.3f} "
+              f"{e.count / per:7.1f}  {e.key[:90]}")
+    # the port's own kernels (csrc/tps.cu), whatever their rank
+    tps = [e for e in kernels if "tps_" in e.key]
+    print("TPS kernels (ms/frame, launches/frame):")
+    for e in tps:
         print(f"  {_device_us(e, True) / per / 1e3:9.3f} "
               f"{e.count / per:7.1f}  {e.key[:90]}")
     n_launch = sum(e.count for e in kernels) / per
     print(json.dumps({"ms_per_frame_synced": float(np.mean(host_ms)),
                       "device_busy_ms_per_frame": busy_us / per / 1e3,
                       "device_busy_share": busy_us / wall_us,
-                      "kernel_launches_per_frame": n_launch}))
+                      "kernel_launches_per_frame": n_launch,
+                      "device_ms_per_frame_in_no_stage":
+                          (busy_us - staged_us) / per / 1e3,
+                      "tps_kernels_ms_per_frame":
+                          sum(_device_us(e, True) for e in tps) / per / 1e3}))
     return 0
 
 

@@ -32,6 +32,12 @@ def _card():
     return torch.device("cuda")
 
 
+def _camera(width, height):
+    return CameraIntrinsics(fx=width * 0.82, fy=width * 0.82,
+                            cx=width / 2 - 0.5, cy=height / 2 - 0.5,
+                            width=width, height=height)
+
+
 def _frame(cam, k=3, device="cpu"):
     rgb, depth = synthetic.render(cam, *synthetic.trajectory(k + 1)[k])
     rgb = torch.from_numpy(rgb).to(device).float()
@@ -50,14 +56,11 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("width,height", [(128, 64), (640, 480)])
 def test_segment_kernels_match_plain_versions(width, height):
     dev = _card()
-    cam = CameraIntrinsics(fx=width * 0.82, fy=width * 0.82,
-                           cx=width / 2 - 0.5, cy=height / 2 - 0.5,
-                           width=width, height=height)
-    rgb, disp = _frame(cam, device=dev)
+    rgb, disp = _frame(_camera(width, height), device=dev)
     cfg = TPSConfig()
     tps_cuda.reset_launch_counts()
     k = tps_cuda.segment(rgb, disp, cfg)
-    assert tps_cuda.launch_counts == {"tps_phase": 40, "tps_merge": 12}
+    assert tps_cuda.launch_counts == {"tps_iteration": 10, "tps_merge": 12}
     p = tps_cuda.segment_reference(rgb, disp, cfg)
     assert (k.labels == p.labels).float().mean().item() >= 0.99
     assert float(k.stats.size.sum()) == width * height
@@ -69,24 +72,30 @@ def test_segment_kernels_match_plain_versions(width, height):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_disp", [False, True])
-def test_phase_and_merge_match_plain_versions(use_disp):
+@pytest.mark.parametrize("width,height,cs", [
+    (128, 64, 16), (640, 480, 16), (176, 144, 16), (128, 64, 8),
+    (176, 144, 8)])
+def test_phase_and_merge_match_plain_versions(width, height, cs, use_disp):
+    """tps_iteration against four phases of the plain version, tps_merge
+    against the plain merge; 176x144 is divided by no iteration tile, and
+    cell size 8 is not the default 16."""
     dev = _card()
-    cfg = PipelineConfig()
-    rgb, disp = _frame(cfg.cam, device=dev)
-    H, W, cs = cfg.cam.height, cfg.cam.width, cfg.tps.cell_size
+    cfg = TPSConfig(cell_size=cs)
+    rgb, disp = _frame(_camera(width, height), device=dev)
+    H, W = height, width
     rgb_chw = rgb.permute(2, 0, 1).contiguous()
     labels = tps_ref.grid_labels(H, W, cs, dev).contiguous()
     inliers = torch.isfinite(disp).float()
     table = torch.zeros((9, H // cs, W // cs), device=dev)
     labels, inliers, table = tps_cuda.run_iterations_reference(
-        rgb_chw, disp, labels, inliers, table, 2, use_disp, cfg.tps)
-    for ph in range(4):
-        lk, ik = tps_cuda.tps_phase(rgb_chw, disp, labels, inliers, table,
-                                    ph, use_disp, cfg.tps)
-        lp, ip = tps_cuda.phase_reference(rgb_chw, disp, labels, inliers,
-                                          table, ph, use_disp, cfg.tps)
-        # same arithmetic in the same order, no fma: exact
-        assert torch.equal(lk, lp) and torch.equal(ik, ip)
+        rgb_chw, disp, labels, inliers, table, 2, use_disp, cfg)
+    lk, ik = tps_cuda.tps_iteration(rgb_chw, disp, labels, inliers, table,
+                                    use_disp, cfg)
+    lp, ip = tps_cuda.iteration_reference(rgb_chw, disp, labels, inliers,
+                                          table, use_disp, cfg)
+    # same arithmetic in the same order, no fma: exact
+    assert torch.equal(lk, lp) and torch.equal(ik, ip)
+    assert not torch.equal(lp, labels)
     mk = tps_cuda.tps_merge(rgb_chw, disp, labels, inliers, table, use_disp,
                             cs)
     mp = tps_cuda.merge_reference(rgb_chw, disp, labels, inliers, table,
@@ -107,8 +116,15 @@ def test_wrappers_refuse_bad_input():
     inliers = torch.zeros((64, 128), device=dev)
     table = torch.zeros((9, 4, 8), device=dev)
     with pytest.raises(ValueError, match="labels"):
-        tps_cuda.tps_phase(rgb_chw, disp, labels, inliers, table, 0, False,
-                           cfg)
+        tps_cuda.tps_iteration(rgb_chw, disp, labels, inliers, table, False,
+                               cfg)
+    with pytest.raises(ValueError, match="inliers"):
+        tps_cuda.tps_iteration(rgb_chw, disp, labels.int(),
+                               inliers.double(), table, True, cfg)
+    with pytest.raises(ValueError, match="aligned"):
+        tps_cuda.tps_merge(rgb_chw, torch.ones(64 * 128 + 1, device=dev)[1:]
+                           .view(64, 128), labels.int(), inliers, table,
+                           True, 16)
     with pytest.raises(ValueError, match="table"):
         tps_cuda.tps_merge(rgb_chw, disp, labels.int(), inliers,
                            table[:, :2], False, 16)

@@ -56,7 +56,7 @@ def test_cpu_wrappers_count_no_launches():
     disp = torch.from_numpy(np.array(depth_to_disp(jnp.asarray(depth))))
     tps_cuda.reset_launch_counts()
     tps_cuda.segment(torch.from_numpy(rgb), disp, TPSConfig(nb_iters=2))
-    assert tps_cuda.launch_counts == {"tps_phase": 0, "tps_merge": 0}
+    assert tps_cuda.launch_counts == {"tps_iteration": 0, "tps_merge": 0}
     with pytest.raises(ValueError):
         tps_cuda.segment(torch.from_numpy(rgb), disp,
                          TPSConfig(merge_every_phase=True))
