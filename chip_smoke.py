@@ -18,7 +18,16 @@ JAX, and:
    `SupersurfelFusion` on a synthetic clip with a known trajectory, counts
    the kernel launches, checks tracking, and holds the first frames against
    the plain CPU path;
-5. prints the kernel table as one JSON line and, last,
+5. detector phase: the person detector (committed weights) on the card
+   against the plain CPU path on one rendered 640x480 frame;
+6. motion phase: `detect_motion` on the card against the CPU on two
+   consecutive frames of the dynamic clip, the same front end fed to both;
+7. MOD pipeline phase: bench's fr3 MOD configuration over the 30-frame
+   dynamic clip (a box sliding 2 cm per frame) through `SupersurfelFusion`:
+   kernel launches, ms/frame, memory, tracking, mover recall and the
+   false-dynamic share against the rendered mover mask, and the first
+   frames against the plain CPU path;
+8. prints the kernel table as one JSON line and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -31,13 +40,29 @@ import json
 import subprocess
 import sys
 import time
-
 import numpy as np
 
 # Total wall-time budget of the run, cold build included (seconds).
 BUDGET_S = 600.0
 N_FRAMES = 30         # pipeline phase frames
 N_CPU_FRAMES = 3      # frames also run on the plain CPU path
+# detect_motion, card vs CPU on the same inputs: float scatter-adds are
+# atomic on the card and sequential on the CPU, so a superpixel's cluster
+# statistics may round differently; at most 1% of decisions may differ
+MOTION_SP_AGREE = 0.99
+MOTION_KP_AGREE = 0.99
+# the MOD pipeline phase's limits, set from free-running CPU runs of the
+# same clip (tests/test_torch_clip_reference.py; PERF.md): the JAX package
+# drifts at most 0.0142 m and the plain port 0.0305 m; both keep ICP valid
+# on every frame, find 2012 of 4616 mover superpixel-frames (recall
+# 0.4359) and mark none of 28 882 static ones dynamic. Rounding alone
+# spreads the static clip's drift by 2.4x (0.0199 m JAX, 0.0235-0.0468 m
+# port routes), so drift keeps that clip's 0.05 m limit; recall may fall
+# by 0.136 (about a third), the false-dynamic share may reach 1%.
+MOD_DRIFT_MAX = 0.05
+MOD_ICP_MIN = 0.8
+MOD_RECALL_MIN = 0.30
+MOD_FALSE_MAX = 0.01
 H100_HBM_BPS = 3.35e12
 H100_FP32_FLOPS = 67e12
 # device time per call of the earlier kernels these replace (the per-phase
@@ -400,6 +425,201 @@ def pipeline_phase(dev):
     return launches, float(np.mean(steady) * 1e3), peak
 
 
+def detector_phase(dev):
+    """The person detector on the card against the plain CPU path on one
+    rendered 640x480 frame: heat map and valid boxes."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.models.person_detector import (
+        load_detector,
+    )
+    from supersurfel_fusion_tpu_torch.tools.profile_frame import mod_config
+    from supersurfel_fusion_tpu_torch.utils.color import rgb_to_gray
+
+    cfg = mod_config()
+    weights = cfg.mod.weights_path
+    rgb, depth, _, _ = synthetic.dynamic_frames(cfg.cam, 4)[3]
+    gray = rgb_to_gray(torch.from_numpy(rgb).float())
+    d = torch.from_numpy(depth.astype(np.float32)) * cfg.depth_scale
+    cpu = load_detector(weights)
+    card = load_detector(weights, dev)
+    gray_d, d_d = gray.to(dev), d.to(dev)
+    hc, _ = cpu.maps(gray, d)
+    hg, _ = card.maps(gray_d, d_d)
+    err = (hg.cpu() - hc).abs().max().item()
+    log(f"  heat map {tuple(hg.shape)}: max |card - cpu| {err:.3e}, max "
+        f"score {hc.max().item():.4f}")
+    check(err <= 1e-5, "detector heat map: card vs CPU <= 1e-5")
+    for thresh in (cfg.mod.person_score_thresh, None):
+        if thresh is None:   # between the 3rd and 4th peaks: 3 valid boxes
+            top = torch.sort(cpu(gray, d).scores, descending=True).values
+            thresh = float(top[2] + top[3]) / 2
+        dc = cpu(gray, d, score_thresh=thresh)
+        dg = card(gray_d, d_d, score_thresh=thresh)
+        v = dc.valid
+        same = torch.equal(dg.valid.cpu(), v)
+        box_err = ((dg.boxes.cpu()[v] - dc.boxes[v]).abs().max().item()
+                   if v.any() else 0.0)
+        log(f"  threshold {thresh:.4f}: {int(v.sum())} valid boxes, card "
+            f"agrees {same}, box max |diff| {box_err:.3e} px")
+        check(same and box_err <= 1e-2,
+              f"detector boxes at threshold {thresh:.4f}: card == CPU")
+    ms = cuda_time_ms(lambda: card(gray_d, d_d), 20)
+    ms_maps = graph_time_ms(lambda: card.maps(gray_d, d_d), 20)
+    log(f"  detector on the card: {ms:.3f} ms per eager call, convolutions "
+        f"{ms_maps:.3f} ms device time (CUDA graph)")
+    return {"heat_err": err, "ms": ms, "maps_ms": ms_maps}
+
+
+def motion_phase(dev):
+    """`detect_motion` on the card against the CPU on frames 4 and 5 of
+    the dynamic clip: the front end, keypoints and previous context are
+    computed once on the CPU and fed to both devices."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.models.person_detector import (
+        load_detector,
+    )
+    from supersurfel_fusion_tpu_torch.ops import motion
+    from supersurfel_fusion_tpu_torch.ops.features import detect_and_describe
+    from supersurfel_fusion_tpu_torch.pipeline import front_end
+    from supersurfel_fusion_tpu_torch.tools.profile_frame import mod_config
+    from supersurfel_fusion_tpu_torch.utils.color import rgb_to_gray
+
+    def to(x):
+        if isinstance(x, tuple):
+            return type(x)(*(to(v) for v in x))
+        return x.to(dev)
+
+    cfg = mod_config()
+    clip = synthetic.dynamic_frames(cfg.cam, 6)
+    det_cpu = load_detector(cfg.mod.weights_path)
+    det_card = load_detector(cfg.mod.weights_path, dev)
+    prev = None
+    for k in (4, 5):
+        rgb = torch.from_numpy(clip[k][0]).float()
+        depth = torch.from_numpy(clip[k][1].astype(np.float32)) \
+            * cfg.depth_scale
+        fe = front_end(rgb, depth, cfg, torch.tensor(k, dtype=torch.int32))
+        gray = rgb_to_gray(rgb)
+        kp = detect_and_describe(gray, cfg.vo)
+        if prev is None:
+            prev = motion.init_prev(cfg.cam.height, cfg.cam.width,
+                                    kp.capacity)
+        args = (gray, fe.fdepth, prev, kp, fe.frame, fe.tps)
+        sc, kc, prev_next = motion.detect_motion(
+            *args, cfg.cam, cfg.tps, cfg.mod, detector=det_cpu)
+        if k == 4:
+            prev = prev_next
+            continue
+        args_d = tuple(to(a) for a in args)
+        sg, kg, _ = motion.detect_motion(*args_d, cfg.cam, cfg.tps, cfg.mod,
+                                         detector=det_card)
+        torch.cuda.synchronize()
+    sp_agree = (sg.cpu() == sc).float().mean().item()
+    kp_agree = (kg.cpu() == kc).float().mean().item()
+    s = synthetic.mover_scores(fe.tps.labels.numpy(), sc.numpy(), clip[5][3])
+    log(f"  frame 5: CPU marks {int((~sc).sum())} superpixels dynamic "
+        f"({s['mover_dynamic']}/{s['mover_sp']} on the mover), the card "
+        f"{int((~sg).sum())}; static_sp agreement {sp_agree:.4f}, "
+        f"static_kp agreement {kp_agree:.4f}")
+    check(s["mover_dynamic"] > 0, "detect_motion finds the mover")
+    check(sp_agree >= MOTION_SP_AGREE, f"static_sp: card vs CPU agree on "
+          f">= {MOTION_SP_AGREE:.0%} of superpixels")
+    check(kp_agree >= MOTION_KP_AGREE, f"static_kp: card vs CPU agree on "
+          f">= {MOTION_KP_AGREE:.0%} of keypoints")
+    ms = cuda_time_ms(lambda: motion.detect_motion(
+        *args_d, cfg.cam, cfg.tps, cfg.mod, detector=det_card), 5)
+    log(f"  detect_motion on the card: {ms:.2f} ms per call (eager, CUDA "
+        f"events)")
+    return {"sp_agree": sp_agree, "kp_agree": kp_agree, "ms": ms}
+
+
+def mod_pipeline_phase(dev):
+    """bench's fr3 MOD configuration over the dynamic clip through the
+    user's entry point, on the card, then its first frames on the CPU."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.ops import tps_cuda
+    from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
+    from supersurfel_fusion_tpu_torch.tools.profile_frame import mod_config
+
+    cfg = mod_config()
+    t0 = time.time()
+    clip = synthetic.dynamic_frames(cfg.cam, N_FRAMES)
+    log(f"  rendered {N_FRAMES} dynamic frames in {time.time() - t0:.2f} s")
+
+    slam = SupersurfelFusion(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tps_cuda.reset_launch_counts()
+    outs, frame_s = [], []
+    for k, (rgb, depth, _, _) in enumerate(clip):
+        t1 = time.time()
+        out = slam.process(rgb, depth, timestamp=float(k))
+        torch.cuda.synchronize()
+        frame_s.append(time.time() - t1)
+        outs.append(out)
+    launches = dict(tps_cuda.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    log(f"  launches {launches} over {N_FRAMES} frames")
+    check(launches["tps_iteration"] == 10 * N_FRAMES,
+          "10 tps_iteration launches per frame")
+    check(launches["tps_merge"] == 12 * N_FRAMES,
+          "12 tps_merge launches per frame")
+    steady = np.array(frame_s[2:]) * 1e3
+    log(f"  ms/frame: first {frame_s[0] * 1e3:.1f}, mean (all) "
+        f"{np.mean(frame_s) * 1e3:.2f}, median (all) "
+        f"{np.median(frame_s) * 1e3:.2f}, steady mean {steady.mean():.2f} "
+        f"median {np.median(steady):.2f} (frames 2..{N_FRAMES - 1}); peak "
+        f"memory {peak / 2**20:.1f} MiB")
+
+    traj = np.array(slam.trajectory)
+    err = synthetic.translation_errors(traj)
+    icp_ok = np.array([bool(o.icp_valid) for o in outs])
+    nb = int(outs[-1].nb_supersurfels)
+    scores = [synthetic.mover_scores(o.labels.cpu().numpy(),
+                                     o.static_sp.cpu().numpy(), c[3])
+              for o, c in zip(outs[2:], clip[2:])]
+    mv = synthetic.mover_summary(scores)
+    log(f"  icp valid {icp_ok[1:].mean():.3f}, nb_supersurfels {nb}")
+    log(f"  translation error vs known trajectory: final {err[-1]:.4f} m, "
+        f"max {err.max():.4f} m")
+    log(f"  mover recall {mv['mover_recall']:.4f} ({mv['mover_dynamic']}/"
+        f"{mv['mover_sp']}), false-dynamic share {mv['false_dynamic']:.4f} "
+        f"({mv['static_dynamic']}/{mv['static_sp']}), frames 2..")
+    check(nb > 0, "nb_supersurfels > 0")
+    check(bool(np.isfinite(traj).all()), "all poses finite")
+    check(icp_ok[1:].mean() >= MOD_ICP_MIN,
+          f"ICP valid on >= {MOD_ICP_MIN:.0%} of frames after the first")
+    check(err.max() < MOD_DRIFT_MAX,
+          f"drift against the known trajectory < {MOD_DRIFT_MAX} m")
+    check(mv["mover_recall"] >= MOD_RECALL_MIN,
+          f"mover recall >= {MOD_RECALL_MIN}")
+    check(mv["false_dynamic"] <= MOD_FALSE_MAX,
+          f"false-dynamic share <= {MOD_FALSE_MAX}")
+
+    ref = SupersurfelFusion(cfg, device="cpu")
+    for k, (rgb, depth, _, _) in enumerate(clip[:N_CPU_FRAMES]):
+        ref.process(rgb, depth, timestamp=float(k))
+    d = np.abs(np.array(ref.trajectory)[:, :3] - traj[:N_CPU_FRAMES, :3]).max()
+    log(f"  card vs plain CPU path, first {N_CPU_FRAMES} poses: max |dt| "
+        f"{d:.2e} m")
+    check(d < 2e-3, "card MOD pipeline agrees with the plain CPU path "
+          "(|dt| < 2 mm)")
+    return launches, {
+        "ms_mean": float(np.mean(frame_s) * 1e3),
+        "ms_median": float(np.median(frame_s) * 1e3),
+        "ms_steady": float(steady.mean()), "peak_mib": peak / 2**20,
+        "icp_valid": float(icp_ok[1:].mean()), "max_err": float(err.max()),
+        "mover_recall": mv["mover_recall"],
+        "false_dynamic": mv["false_dynamic"], "cpu_dt": float(d)}
+
+
 def main() -> int:
     try:
         import torch
@@ -429,6 +649,18 @@ def main() -> int:
     launches, ms_frame, peak = pipeline_phase(dev)
     phase_done("pipeline", t0)
 
+    t0 = time.time()
+    detector_phase(dev)
+    phase_done("detector", t0)
+
+    t0 = time.time()
+    motion_phase(dev)
+    phase_done("motion", t0)
+
+    t0 = time.time()
+    mod_launches, mod = mod_pipeline_phase(dev)
+    phase_done("MOD pipeline", t0)
+
     rows = []
     for name in ("tps_iteration", "tps_merge"):
         r = kern[name]
@@ -436,13 +668,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "supersurfel_fusion_tpu_torch/csrc/tps.cu",
             "replaces": "supersurfel_fusion_tpu/ops/tps_pallas.py:381",
-            "launches": launches[name],
+            # both pipeline phases: the default and the MOD frame step
+            "launches": launches[name] + mod_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     log(f"pipeline: {ms_frame:.2f} ms/frame steady, peak "
-        f"{peak / 2**20:.1f} MiB, total {time.time() - _T0:.1f} s")
+        f"{peak / 2**20:.1f} MiB; MOD pipeline: {mod['ms_steady']:.2f} "
+        f"ms/frame steady, peak {mod['peak_mib']:.1f} MiB; total "
+        f"{time.time() - _T0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

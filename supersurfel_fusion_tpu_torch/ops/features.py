@@ -85,13 +85,15 @@ def _resize_weights_on(m: int, n: int, device: torch.device) -> Tensor:
 
 
 def resize_bilinear(img: Tensor, Hl: int, Wl: int) -> Tensor:
-    """`jax.image.resize(img, (Hl, Wl), "bilinear")` for a 2D image."""
+    """`jax.image.resize(img, (Hl, Wl), "bilinear")` for a 2D image (the
+    f32 weights are cast to the image's dtype)."""
     H, W = img.shape
     out = img
     if Hl != H:
-        out = _resize_weights_on(H, Hl, img.device).T @ out
+        wh = _resize_weights_on(H, Hl, img.device).to(img.dtype)
+        out = wh.T @ out
     if Wl != W:
-        out = out @ _resize_weights_on(W, Wl, img.device)
+        out = out @ _resize_weights_on(W, Wl, img.device).to(img.dtype)
     return out
 
 
@@ -292,6 +294,27 @@ def _descriptors(patches_blur: Tensor, angle: Tensor) -> Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def _level_shape(H0: int, W0: int, lvl: int, scale_factor: float):
+    scale = scale_factor**lvl
+    return (max(int(round(H0 / scale)), _PATCH + 2),
+            max(int(round(W0 / scale)), _PATCH + 2))
+
+
+def keypoint_capacity(cfg: VOConfig, H: int, W: int) -> int:
+    """The static keypoint count of `detect_and_describe` on an H x W
+    image: each level keeps at most its budget, and at most one keypoint
+    per detection cell."""
+    budgets = _level_budgets(cfg.nb_features, cfg.nb_levels, cfg.scale_factor)
+    cell = int(cfg.detect_cell)
+    total = 0
+    for lvl in range(cfg.nb_levels):
+        Hl, Wl = (H, W) if lvl == 0 else _level_shape(H, W, lvl,
+                                                       cfg.scale_factor)
+        n_cells = -(-Hl // cell) * -(-Wl // cell)
+        total += min(budgets[lvl], n_cells)
+    return total
+
+
 def detect_and_describe(gray: Tensor, cfg: VOConfig) -> Keypoints:
     """Full ORB pipeline over the pyramid. Output capacity is the sum of the
     per-level budgets (static)."""
@@ -305,9 +328,8 @@ def detect_and_describe(gray: Tensor, cfg: VOConfig) -> Keypoints:
     for lvl in range(cfg.nb_levels):
         scale = cfg.scale_factor**lvl
         if lvl > 0:
-            Hl = max(int(round(H0 / scale)), _PATCH + 2)
-            Wl = max(int(round(W0 / scale)), _PATCH + 2)
-            img = resize_bilinear(gray, Hl, Wl)
+            img = resize_bilinear(gray, *_level_shape(H0, W0, lvl,
+                                                      cfg.scale_factor))
 
         hi, lo, score = fast_scores(img, float(cfg.ini_th_fast),
                                     float(cfg.min_th_fast))

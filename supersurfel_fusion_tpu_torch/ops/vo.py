@@ -192,14 +192,26 @@ def _keypoints_world(kp: Keypoints, depth0: Tensor, R: Tensor, t: Tensor,
 
 def update_local_map(lmap: LocalMap, kp: Keypoints, depth0: Tensor,
                      matches: VOMatches, R: Tensor, t: Tensor,
-                     cam: CameraIntrinsics, cfg: VOConfig) -> LocalMap:
+                     cam: CameraIntrinsics, cfg: VOConfig,
+                     static_kp: Tensor | None = None,
+                     labels: Tensor | None = None,
+                     static_sp: Tensor | None = None) -> LocalMap:
     """Replace matched map points, evict untracked ones, insert unmatched
     new points into free slots in a stable order (LocalMap::update +
-    clean). The JAX MOD-path arguments come with the MOD slice."""
+    clean).
+
+    `static_kp`: optional per-keypoint static mask (MOD path).
+    `labels`/`static_sp`: when given (MOD path), existing map points whose
+    projection lands on a dynamic superpixel are evicted, so that a mover
+    that slipped into the map does not keep feeding PnP
+    (LocalMap::updateMOD)."""
     M = lmap.capacity
     dev = t.device
+    H, W = depth0.shape
     z, p_world = _keypoints_world(kp, depth0, R, t, cam)
     has_depth = kp.valid & (z >= 0.2) & (z <= 5.0)
+    if static_kp is not None:
+        has_depth = has_depth & static_kp
     midx = matches.map_idx.to(torch.int64)
 
     rep = has_depth & (midx >= 0)
@@ -208,6 +220,23 @@ def update_local_map(lmap: LocalMap, kp: Keypoints, depth0: Tensor,
     desc = scatter_set_drop(lmap.desc, rep_tgt, kp.desc)
 
     keep = lmap.valid & (lmap.counters < cfg.untracked_threshold)
+    if labels is not None and static_sp is not None:
+        # the map points as they were before this frame's replacements
+        Rv = R.T
+        tv = -(Rv @ t)
+        p_view = lmap.positions @ Rv.T + tv
+        zm = p_view[:, 2]
+        safe_zm = torch.where(torch.abs(zm) > 1e-9, zm,
+                              torch.full_like(zm, 1e-9))
+        um = p_view[:, 0] * cam.fx / safe_zm + cam.cx
+        vm = p_view[:, 1] * cam.fy / safe_zm + cam.cy
+        in_img = ((zm > 0) & (um >= 0) & (um < cam.width) & (vm >= 0)
+                  & (vm < cam.height))
+        # a NaN pixel reads cell 0, as XLA's float-to-int conversion gives
+        uv = torch.nan_to_num(torch.stack([um, vm], dim=-1), nan=0.0)
+        ui_m, vi_m = _pixel_of(uv, H, W)
+        on_dynamic = in_img & ~static_sp[labels[vi_m, ui_m].to(torch.int64)]
+        keep = keep & ~on_dynamic
 
     ins = has_depth & (midx < 0)
     free = ~keep
@@ -220,9 +249,10 @@ def update_local_map(lmap: LocalMap, kp: Keypoints, depth0: Tensor,
                            torch.full_like(ins_rank, M))
     positions = scatter_set_drop(positions, ins_slot, p_world)
     desc = scatter_set_drop(desc, ins_slot, kp.desc)
+    # index_fill_ takes the value as a scalar argument; `t[idx] = True`
+    # copies it from pageable host memory, which waits for the device
     inserted = torch.zeros((M + 1,), dtype=torch.bool, device=dev)
-    inserted[ins_slot] = True
-    inserted = inserted[:M]
+    inserted = inserted.index_fill_(0, ins_slot, True)[:M]
 
     valid = keep | inserted
     counters = torch.where(inserted, torch.zeros_like(lmap.counters),

@@ -4,20 +4,24 @@ Port of `supersurfel_fusion_tpu/pipeline.py` (the equivalent of
 `SupersurfelFusion::processFrame`) for the default configuration:
 
     depth bilateral filter -> disparity -> TPS superpixels -> plane smoothing
-    -> slanted-plane depth -> supersurfel generation -> sparse VO ->
-    symmetric ICP against the model -> fusion / insertion / filtering.
+    -> slanted-plane depth -> supersurfel generation -> [moving-object
+    detection] -> sparse VO -> symmetric ICP against the model -> fusion /
+    insertion / filtering.
 
 The frame step queues its work on the state's device and needs no host
 sync. On a CUDA device the TPS iteration loop runs on the hand-written
 kernels of `ops/tps_cuda.py`; on the CPU it runs the plain `ops/tps.py`.
-Moving-object detection, ferns and loop closure are later slices of the
-port: a configuration that enables them is refused. Each stage runs under a
-`torch.profiler.record_function` range named "ssf.<stage>", which
-`tools/profile_frame.py` reads.
+Moving-object detection (`mod.enabled`, with the person detector when
+`mod.use_yolo` names weights) marks dynamic superpixels, which are kept
+out of VO, ICP, fusion and the local map. Ferns, loop closure and the
+options measured and rejected in the JAX package are refused. Each stage
+runs under a `torch.profiler.record_function` range named "ssf.<stage>",
+which `tools/profile_frame.py` reads.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,8 +30,13 @@ from torch.profiler import record_function
 
 from supersurfel_fusion_tpu_torch.config import PipelineConfig
 from supersurfel_fusion_tpu_torch.device import resolve_device
+from supersurfel_fusion_tpu_torch.models.person_detector import (
+    PersonDetector,
+    load_detector,
+)
 from supersurfel_fusion_tpu_torch.ops import fusion as fusion_ops
 from supersurfel_fusion_tpu_torch.ops import icp as icp_ops
+from supersurfel_fusion_tpu_torch.ops import motion as motion_ops
 from supersurfel_fusion_tpu_torch.ops import tps as tps_ops
 from supersurfel_fusion_tpu_torch.ops import tps_cuda
 from supersurfel_fusion_tpu_torch.ops import vo as vo_ops
@@ -35,7 +44,10 @@ from supersurfel_fusion_tpu_torch.ops.depth import (
     bilateral_filter,
     depth_to_disp,
 )
-from supersurfel_fusion_tpu_torch.ops.features import detect_and_describe
+from supersurfel_fusion_tpu_torch.ops.features import (
+    detect_and_describe,
+    keypoint_capacity,
+)
 from supersurfel_fusion_tpu_torch.ops.supersurfels import (
     generate_supersurfels,
 )
@@ -47,18 +59,22 @@ Tensor = torch.Tensor
 
 
 class SLAMState(NamedTuple):
-    """The state carried across frames (the JAX SLAMState without the MOD,
-    fern and keyframe-store fields, which come with their slices)."""
+    """The state carried across frames (the JAX SLAMState without the fern
+    and keyframe-store fields, which come with the loop-closure slice)."""
 
     model: ModelState
     pose: Pose               # camera -> world
     stamp: Tensor            # () int32
     local_map: vo_ops.LocalMap
+    mod_prev: motion_ops.MODPrev
     vis_peak: Tensor         # () int32 peak visible count
     dropped_total: Tensor    # () int32 insertions dropped at capacity
     # (max_frames, 12) float32 — per-frame pose [R.flat(9) | t(3)] written at
     # index `stamp` each step, read once after the run
     traj: Tensor
+    # the person detector with its weights (mod.use_yolo with a
+    # weights_path), else None
+    detector: Optional[PersonDetector] = None
 
 
 class FrameOutput(NamedTuple):
@@ -74,15 +90,18 @@ class FrameOutput(NamedTuple):
     nb_visible: Tensor
     labels: Tensor          # (H, W) superpixel index image
     plane_depth: Tensor     # (H, W) slanted-plane depth
+    static_sp: Tensor       # (N_sp,) bool — False = detected as moving (MOD)
     n_fused: Tensor
     n_inserted: Tensor
     n_removed: Tensor
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise for the options this slice of the port does not run."""
+    """Raise for the options the port does not run: loop closure comes
+    with its slice; temporal heat, the whole-update freeze and the
+    insertion gate were measured and rejected in the JAX package."""
     off = {
-        "mod.enabled": cfg.mod.enabled,
+        "mod.temporal_heat": cfg.mod.enabled and cfg.mod.temporal_heat,
         "ferns.enabled": cfg.ferns.enabled,
         "enable_loop_closure": cfg.enable_loop_closure,
         "fusion.freeze_on_tracking_loss": cfg.fusion.freeze_on_tracking_loss,
@@ -103,15 +122,24 @@ def init_state(cfg: PipelineConfig,
         nb_supersurfels=torch.zeros((), **i32),
         nb_visible=torch.zeros((), **i32),
     )
+    kp_cap = keypoint_capacity(cfg.vo, cfg.cam.height, cfg.cam.width)
+    # a missing weights file raises: there is no quiet fallback to the
+    # simple path, which runs only when no weights are named
+    detector = None
+    if cfg.mod.enabled and cfg.mod.use_yolo and cfg.mod.weights_path:
+        detector = load_detector(cfg.mod.weights_path, dev)
     return SLAMState(
         model=model,
         pose=Pose.identity(dev),
         stamp=torch.zeros((), **i32),
         local_map=vo_ops.LocalMap.empty(cfg.vo.local_map_capacity, dev),
+        mod_prev=motion_ops.init_prev(cfg.cam.height, cfg.cam.width,
+                                      kp_cap, cfg.tps.cell_size, dev),
         vis_peak=torch.zeros((), **i32),
         dropped_total=torch.zeros((), **i32),
         traj=torch.zeros((cfg.max_frames, 12), dtype=torch.float32,
                          device=dev),
+        detector=detector,
     )
 
 
@@ -160,25 +188,18 @@ def _upload(a, dev: torch.device) -> Tensor:
     return t.to(dev)
 
 
-def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
-    """One SLAM step on the state's device.
+class FrontEnd(NamedTuple):
+    fdepth: Tensor                 # (H, W) bilateral-filtered depth
+    tps: tps_ops.TPSResult         # superpixels, with smoothed planes
+    plane_depth: Tensor            # (H, W) slanted-plane depth
+    frame: Supersurfels            # the frame's supersurfels (camera frame)
 
-    rgb: (H, W, 3) uint8 or float32 [0, 255]; depth: (H, W) raw uint16
-    counts (scaled by cfg.depth_scale) or float32 metres (0 invalid), as
-    numpy arrays or tensors. Integer inputs are converted on the device.
-    Returns (new_state, outputs)."""
-    check_supported(cfg)
-    dev = state.stamp.device
-    rgb = _upload(rgb, dev)
-    depth = _upload(depth, dev)
-    if rgb.dtype != torch.float32:
-        rgb = rgb.to(torch.float32)
-    if depth.dtype in (torch.uint16, torch.int32):
-        depth = depth.to(torch.float32) * cfg.depth_scale
-    elif depth.dtype != torch.float32:
-        depth = depth.to(torch.float32)
 
-    cam = cfg.cam
+def front_end(rgb: Tensor, depth: Tensor, cfg: PipelineConfig,
+              stamp: Tensor) -> FrontEnd:
+    """Steps 1-6 of the frame step on float rgb (H, W, 3) and depth (H, W)
+    metres: depth prefilter, TPS superpixels, plane smoothing,
+    slanted-plane depth and supersurfel generation."""
     cs = cfg.tps.cell_size
     gh, gw = cfg.grid_h, cfg.grid_w
 
@@ -201,15 +222,54 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     # 6. supersurfel generation (camera frame)
     with record_function("ssf.supersurfels"):
         frame = generate_supersurfels(
-            rgb, plane_depth, tps, cam, cfg.tps, cfg.generation,
-            cfg.fusion.range_min, cfg.fusion.range_max, state.stamp)
+            rgb, plane_depth, tps, cfg.cam, cfg.tps, cfg.generation,
+            cfg.fusion.range_min, cfg.fusion.range_max, stamp)
+    return FrontEnd(fdepth, tps, plane_depth, frame)
 
-    # 7-8. sparse feature VO
+
+def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
+    """One SLAM step on the state's device.
+
+    rgb: (H, W, 3) uint8 or float32 [0, 255]; depth: (H, W) raw uint16
+    counts (scaled by cfg.depth_scale) or float32 metres (0 invalid), as
+    numpy arrays or tensors. Integer inputs are converted on the device.
+    Returns (new_state, outputs)."""
+    check_supported(cfg)
+    dev = state.stamp.device
+    rgb = _upload(rgb, dev)
+    depth = _upload(depth, dev)
+    if rgb.dtype != torch.float32:
+        rgb = rgb.to(torch.float32)
+    if depth.dtype in (torch.uint16, torch.int32):
+        depth = depth.to(torch.float32) * cfg.depth_scale
+    elif depth.dtype != torch.float32:
+        depth = depth.to(torch.float32)
+
+    cam = cfg.cam
+    fdepth, tps, plane_depth, frame = front_end(rgb, depth, cfg, state.stamp)
+
+    # 7-8. moving-object detection + sparse feature VO
     pose = state.pose
     lmap = state.local_map
+    mod_prev = state.mod_prev
+    is_static_sp = torch.ones((cfg.nb_superpixels,), dtype=torch.bool,
+                              device=dev)
     if cfg.enable_sparse_vo:
         with record_function("ssf.features"):
-            kp = detect_and_describe(rgb_to_gray(rgb), cfg.vo)
+            gray = rgb_to_gray(rgb)
+            kp = detect_and_describe(gray, cfg.vo)
+        if cfg.mod.enabled:
+            with record_function("ssf.mod"):
+                # MOD reads the bilateral-filtered depth (keypoint 3D and
+                # the SE(3) depth residual need metric depth at corners)
+                is_static_sp, static_kp, mod_prev = motion_ops.detect_motion(
+                    gray, fdepth, mod_prev, kp, frame, tps, cam, cfg.tps,
+                    cfg.mod, detector=state.detector)
+                # dynamic superpixels are kept out of fusion, ICP and VO
+                frame = frame._replace(confidences=torch.where(
+                    is_static_sp, frame.confidences,
+                    torch.full_like(frame.confidences, -1.0)))
+                kp = kp._replace(valid=static_kp)
         with record_function("ssf.vo"):
             matches, lmap = vo_ops.find_matches(lmap, kp, pose.R, pose.t,
                                                 cam, cfg.vo)
@@ -232,8 +292,10 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     # 12. local-map maintenance with the final fused pose
     if cfg.enable_sparse_vo:
         with record_function("ssf.local_map"):
+            mod_args = dict(labels=tps.labels, static_sp=is_static_sp) \
+                if cfg.mod.enabled else {}
             lmap = vo_ops.update_local_map(lmap, kp, fdepth, matches, pose.R,
-                                           pose.t, cam, cfg.vo)
+                                           pose.t, cam, cfg.vo, **mod_args)
 
     # 13. model update / bootstrap
     with record_function("ssf.fusion"):
@@ -249,9 +311,11 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
 
     new_state = SLAMState(
         model=model, pose=pose, stamp=state.stamp + 1, local_map=lmap,
+        mod_prev=mod_prev,
         vis_peak=torch.maximum(state.vis_peak, model.nb_visible),
         dropped_total=state.dropped_total + fusion_stats.n_dropped,
         traj=traj,
+        detector=state.detector,
     )
     out = FrameOutput(
         pose=pose,
@@ -266,6 +330,7 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
         nb_visible=model.nb_visible,
         labels=tps.labels,
         plane_depth=plane_depth,
+        static_sp=is_static_sp,
         n_fused=fusion_stats.n_fused,
         n_inserted=fusion_stats.n_inserted,
         n_removed=fusion_stats.n_removed,
@@ -300,6 +365,7 @@ class SupersurfelFusion:
         self.cfg = cfg
         self.state = init_state(cfg, device)
         self.stamps: list[float] = []
+        self._cap_warned = False
 
     def process(self, rgb: np.ndarray, depth: np.ndarray,
                 timestamp: Optional[float] = None) -> FrameOutput:
@@ -307,6 +373,13 @@ class SupersurfelFusion:
         self.state, out = process_frame(self.state, rgb, depth, self.cfg)
         if timestamp is not None:
             self.stamps.append(timestamp)
+            if (len(self.stamps) > self.cfg.max_frames
+                    and not self._cap_warned):
+                self._cap_warned = True
+                warnings.warn(
+                    f"frame count exceeded PipelineConfig.max_frames="
+                    f"{self.cfg.max_frames}; trajectory poses past the cap "
+                    "overwrite the last slot", stacklevel=2)
         return out
 
     @property

@@ -1,10 +1,12 @@
-"""Where the time of the default frame step goes, on one CUDA card.
+"""Where the time of the frame step goes, on one CUDA card.
 
     python -m supersurfel_fusion_tpu_torch.tools.profile_frame \\
-        [--frames 6] [--warmup 4] [--trace PATH.json]
+        [--mod] [--frames 6] [--warmup 4] [--trace PATH.json]
 
 Drives the default `PipelineConfig` through `SupersurfelFusion` on the
-synthetic clip, then prints:
+synthetic clip or, with `--mod`, bench's fr3 MOD configuration (fr3
+camera, moving-object detection with the person detector's committed
+weights) on the synthetic dynamic clip, then prints:
 
 * the card's name and power limit (nvidia-smi);
 * the kernel launches per frame;
@@ -15,7 +17,11 @@ synthetic clip, then prints:
   the device time of the kernels the profiler links to it; the device time
   it links to no stage; the kernels with the most device time; the TPS
   kernels' device time and launches; and the device's busy share of the
-  window (kernel time over wall time; the idle share is the rest).
+  window (kernel time over wall time; the idle share is the rest);
+* kernel launches per frame for each stage (the CUDA launch calls the
+  host makes inside the stage's range);
+* over one more frame, the operations that made the host wait for the
+  device (`torch.cuda.set_sync_debug_mode`).
 
 It needs a CUDA device and fails without one.
 """
@@ -23,16 +29,24 @@ It needs a CUDA device and fails without one.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import time
+import traceback
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from supersurfel_fusion_tpu_torch import synthetic
-from supersurfel_fusion_tpu_torch.config import PipelineConfig
+from supersurfel_fusion_tpu_torch.config import (
+    CameraIntrinsics,
+    MODConfig,
+    PipelineConfig,
+)
 from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
 
 
@@ -42,8 +56,74 @@ def _device_us(evt, self_only: bool) -> float:
     return float(getattr(evt, name, getattr(evt, legacy, 0.0)))
 
 
+# names of the host-side CUDA API calls that launch a kernel
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel",
+                 "cudaLaunchCooperativeKernel")
+
+
+def stage_launches(events, per: int):
+    """(launches per frame inside each "ssf.*" range, all launches per
+    frame): the CUDA launch calls the host made during a range, on the
+    range's thread. Kernels launched outside PyTorch (the ctypes-bound
+    TPS kernels) count too."""
+    ranges = [(e.time_range.start, e.time_range.end, e.thread, e.name)
+              for e in events if e.name.startswith("ssf.")
+              and e.device_type == DeviceType.CPU]
+    launches = sorted((e.time_range.start, e.thread) for e in events
+                      if any(c in e.name for c in _LAUNCH_CALLS))
+    starts = [t for t, _ in launches]
+    out: dict = {}
+    for t0, t1, thread, name in ranges:
+        i = bisect.bisect_left(starts, t0)
+        j = bisect.bisect_right(starts, t1)
+        n = sum(1 for _, th in launches[i:j] if th == thread)
+        out[name] = out.get(name, 0) + n
+    return {k: v / per for k, v in out.items()}, len(launches) / per
+
+
+def host_syncs(step) -> list:
+    """Run step() once with CUDA sync debugging on; the port's source
+    lines (innermost frame in the package) of the operations that made
+    the host wait for the device, with counts."""
+    pkg = str(Path(__file__).resolve().parents[1])
+    where: dict = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg) and "tools" not in f.filename]
+        key = (f"{Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours
+               else f"{Path(filename).name}:{lineno}")
+        where[key] = where.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted(where.items(), key=lambda kv: -kv[1])
+
+
+def mod_config() -> PipelineConfig:
+    """bench.py's fr3 configuration: the fr3 camera and moving-object
+    detection with the person detector's committed weights."""
+    weights = Path(__file__).resolve().parents[2] / "weights" \
+        / "person_detector.npz"
+    return PipelineConfig(cam=CameraIntrinsics.tum_fr3(),
+                          mod=MODConfig(enabled=True, use_yolo=True,
+                                        weights_path=str(weights)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--mod", action="store_true",
+                    help="the fr3 MOD configuration on the dynamic clip")
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--trace", default="")
@@ -56,15 +136,18 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    cfg = PipelineConfig()
-    n = args.warmup + 2 * args.frames
-    clip = synthetic.frames(cfg.cam, n)
+    cfg = mod_config() if args.mod else PipelineConfig()
+    n = args.warmup + 2 * args.frames + 1
+    clip = (synthetic.dynamic_frames(cfg.cam, n) if args.mod
+            else synthetic.frames(cfg.cam, n))
+    print(f"config: {'fr3 MOD, dynamic clip' if args.mod else 'default'}",
+          flush=True)
     slam = SupersurfelFusion(cfg, device="cuda")
     it = iter(enumerate(clip))
 
     def step():
-        k, (rgb, depth, _) = next(it)
-        slam.process(rgb, depth, timestamp=float(k))
+        k, frame = next(it)
+        slam.process(frame[0], frame[1], timestamp=float(k))
 
     for _ in range(args.warmup):
         step()
@@ -130,14 +213,36 @@ def main(argv=None) -> int:
         print(f"  {_device_us(e, True) / per / 1e3:9.3f} "
               f"{e.count / per:7.1f}  {e.key[:90]}")
     n_launch = sum(e.count for e in kernels) / per
-    print(json.dumps({"ms_per_frame_synced": float(np.mean(host_ms)),
-                      "device_busy_ms_per_frame": busy_us / per / 1e3,
-                      "device_busy_share": busy_us / wall_us,
-                      "kernel_launches_per_frame": n_launch,
-                      "device_ms_per_frame_in_no_stage":
-                          (busy_us - staged_us) / per / 1e3,
-                      "tps_kernels_ms_per_frame":
-                          sum(_device_us(e, True) for e in tps) / per / 1e3}))
+    by_stage, n_calls = stage_launches(prof.events(), per)
+    print(f"kernel launch calls per frame: {n_calls:.1f}; by stage:")
+    for name, v in sorted(by_stage.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:<18}{v:9.1f}")
+
+    syncs = host_syncs(step)
+    print(f"host waits on the device over one frame: "
+          f"{sum(c for _, c in syncs)}")
+    for where, count in syncs:
+        print(f"  {count:5d}  {where}")
+
+    mod = next((e for e in stages if e.key == "ssf.mod"), None)
+    summary = {"config": "fr3_mod" if args.mod else "default",
+               "ms_per_frame_synced": float(np.mean(host_ms)),
+               "device_busy_ms_per_frame": busy_us / per / 1e3,
+               "device_busy_share": busy_us / wall_us,
+               "kernel_launches_per_frame": n_launch,
+               "launch_calls_per_frame": n_calls,
+               "launch_calls_per_frame_by_stage": by_stage,
+               "device_ms_per_frame_in_no_stage":
+                   (busy_us - staged_us) / per / 1e3,
+               "tps_kernels_ms_per_frame":
+                   sum(_device_us(e, True) for e in tps) / per / 1e3,
+               "host_syncs_per_frame": sum(c for _, c in syncs)}
+    if mod is not None:
+        summary.update(mod_host_ms_per_frame=mod.cpu_time_total / per / 1e3,
+                       mod_device_ms_per_frame=_device_us(mod, False)
+                       / per / 1e3,
+                       mod_launches_per_frame=by_stage.get("ssf.mod", 0.0))
+    print(json.dumps(summary))
     return 0
 
 

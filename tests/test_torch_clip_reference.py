@@ -1,0 +1,141 @@
+"""Reference numbers of the synthetic clips: the JAX package and the plain
+port, each free-running on the CPU.
+
+Run as a script, it measures what `chip_smoke.py`'s limits rest on, at
+640x480 over 30 frames of both clips:
+
+    python tests/test_torch_clip_reference.py [--frames 30] [--out FILE]
+
+* the static clip (`synthetic.frames`) with the default configuration;
+* the dynamic clip (`synthetic.dynamic_frames`) with bench's fr3 MOD
+  configuration (fr3 camera, the person detector's committed weights).
+
+For each package and clip it prints the per-frame translation error
+against the known trajectory and, on the dynamic clip, the mover recall
+and the false-dynamic share (frames 2 onward), and writes them as JSON.
+As a test it runs the same code on three frames at 256x192.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+if __name__ == "__main__":
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, str(ROOT))
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from supersurfel_fusion_tpu import config as jcfg  # noqa: E402
+from supersurfel_fusion_tpu import pipeline as jpipe  # noqa: E402
+from supersurfel_fusion_tpu_torch import config as tcfg  # noqa: E402
+from supersurfel_fusion_tpu_torch import pipeline as tpipe  # noqa: E402
+from supersurfel_fusion_tpu_torch import synthetic  # noqa: E402
+
+from test_torch_pipeline import small_config  # noqa: E402
+
+WEIGHTS = str(ROOT / "weights" / "person_detector.npz")
+
+
+def clip_config(C, clip: str, small: bool = False):
+    """The default configuration for the static clip, bench's fr3 MOD
+    configuration for the dynamic one; `small` cuts either to 256x192 as
+    the pipeline tests do."""
+    kw = {}
+    if clip == "dynamic":
+        kw = dict(cam=C.CameraIntrinsics.tum_fr3(),
+                  mod=C.MODConfig(enabled=True, use_yolo=True,
+                                  weights_path=WEIGHTS))
+    if small:
+        kw.pop("cam", None)
+        return small_config(C, **kw)
+    return C.PipelineConfig(**kw)
+
+
+def clip_frames(clip: str, cam, n: int, small: bool = False):
+    """(rgb, depth, mover or None) per frame."""
+    if clip == "static":
+        return [(rgb, depth, None) for rgb, depth, _ in
+                synthetic.frames(cam, n)]
+    # the 256x192 camera sees the mover's 5 cm steps as the fr3 camera
+    # sees its 2 cm ones (about 5 px)
+    step = 0.05 if small else synthetic.BOX_STEP
+    return [(rgb, depth, mover) for rgb, depth, _, mover in
+            synthetic.dynamic_frames(cam, n, step=step)]
+
+
+def run(package: str, clip: str, n: int, small: bool = False) -> dict:
+    """Free-run one package over one clip. Returns the per-frame errors,
+    mover scores and wall time."""
+    C = jcfg if package == "jax" else tcfg
+    cfg = clip_config(C, clip, small)
+    frames = clip_frames(clip, clip_config(tcfg, clip, small).cam, n, small)
+    slam = (jpipe.SupersurfelFusionTPU(cfg) if package == "jax"
+            else tpipe.SupersurfelFusion(cfg, device="cpu"))
+    scores, icp = [], []
+    t0 = time.time()
+    for k, (rgb, depth, mover) in enumerate(frames):
+        out = slam.process(rgb, depth, timestamp=float(k))
+        icp.append(bool(np.asarray(out.icp_valid)))
+        if mover is not None and k >= 2:
+            scores.append(synthetic.mover_scores(
+                np.asarray(out.labels), np.asarray(out.static_sp), mover))
+    err = synthetic.translation_errors(slam.trajectory)
+    res = {"package": package, "clip": clip, "frames": n,
+           "seconds": time.time() - t0, "err": err.tolist(),
+           "max_err": float(err.max()), "final_err": float(err[-1]),
+           "icp_valid": float(np.mean(icp[1:]))}
+    if scores:
+        res.update(synthetic.mover_summary(scores))
+    return res
+
+
+def test_clip_reference_runs_both_packages():
+    """Three dynamic frames at 256x192 through both runners. Free-running,
+    the two packages part after the known fusion fault (ROADMAP Queue 3)
+    makes their models differ, so this holds what the runs report, not
+    their parity (tests/test_torch_pipeline_mod.py holds that frame by
+    frame): both track, and both find the mover."""
+    for package in ("jax", "port"):
+        r = run(package, "dynamic", 3, small=True)
+        assert len(r["err"]) == 3 and r["err"][0] == 0.0
+        assert r["max_err"] < 0.05, r
+        assert r["mover_sp"] > 0 and r["mover_dynamic"] > 0, r
+        assert 0.0 <= r["false_dynamic"] <= 1.0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--packages", default="jax,port")
+    ap.add_argument("--clips", default="static,dynamic")
+    args = ap.parse_args(argv)
+    jax.config.update("jax_platforms", "cpu")
+    results = []
+    for clip in args.clips.split(","):
+        for package in args.packages.split(","):
+            r = run(package, clip, args.frames)
+            results.append(r)
+            extra = (f", mover recall {r['mover_recall']:.4f} "
+                     f"({r['mover_dynamic']}/{r['mover_sp']}), "
+                     f"false-dynamic {r['false_dynamic']:.4f} "
+                     f"({r['static_dynamic']}/{r['static_sp']})"
+                     if "mover_recall" in r else "")
+            print(f"{package} {clip}: max err {r['max_err']:.4f} m, final "
+                  f"{r['final_err']:.4f} m, icp valid {r['icp_valid']:.3f}"
+                  f"{extra}, {r['seconds']:.1f} s", flush=True)
+            print("  per-frame err (m): "
+                  + " ".join(f"{e:.4f}" for e in r["err"]), flush=True)
+    if args.out:
+        Path(args.out).write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

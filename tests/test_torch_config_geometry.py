@@ -16,6 +16,11 @@ from supersurfel_fusion_tpu_torch import config as tcfg
 from supersurfel_fusion_tpu_torch.utils import color as tcolor
 from supersurfel_fusion_tpu_torch.utils import geometry as tgeo
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and each process's OpenMP threads spinning against the others' made the
+# torch tests about 20 times slower on an 8-core machine.
+torch.set_num_threads(1)
+
 _CLASSES = ["CameraIntrinsics", "TPSConfig", "ICPConfig", "FusionConfig",
             "GenerationConfig", "VOConfig", "MODConfig", "FernsConfig",
             "PipelineConfig"]

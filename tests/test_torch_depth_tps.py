@@ -14,6 +14,11 @@ from supersurfel_fusion_tpu_torch.config import TPSConfig
 from supersurfel_fusion_tpu_torch.ops import depth as tdepth
 from supersurfel_fusion_tpu_torch.ops import tps as ttps
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and each process's OpenMP threads spinning against the others' made the
+# torch tests about 20 times slower on an 8-core machine.
+torch.set_num_threads(1)
+
 
 def scene(H=64, W=128, seed=0):
     """The two-region scene of tests/test_tps_pallas.py with a depth hole."""

@@ -16,6 +16,11 @@ from supersurfel_fusion_tpu_torch.ops import features as tfeat
 from supersurfel_fusion_tpu_torch.ops import matching as tmatch
 from supersurfel_fusion_tpu_torch.ops import vo as tvo
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and each process's OpenMP threads spinning against the others' made the
+# torch tests about 20 times slower on an 8-core machine.
+torch.set_num_threads(1)
+
 CAM = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
 
 

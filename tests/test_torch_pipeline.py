@@ -16,6 +16,11 @@ from supersurfel_fusion_tpu_torch import config as tcfg
 from supersurfel_fusion_tpu_torch import convert, synthetic
 from supersurfel_fusion_tpu_torch import pipeline as tpipe
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and each process's OpenMP threads spinning against the others' made the
+# torch tests about 20 times slower on an 8-core machine.
+torch.set_num_threads(1)
+
 
 def small_config(C, **kw):
     """The default configuration cut to 256x192: fewer TPS iterations, a
@@ -42,12 +47,19 @@ def test_state_round_trip():
     js = js._replace(stamp=jnp.int32(3),
                      local_map=js.local_map._replace(
                          desc=js.local_map.desc.at[0].set(
-                             jnp.uint32(0xDEADBEEF))))
+                             jnp.uint32(0xDEADBEEF))),
+                     mod_prev=js.mod_prev._replace(
+                         kp_desc=js.mod_prev.kp_desc.at[1, 2].set(
+                             jnp.uint32(0xCAFEF00D)),
+                         initialized=jnp.bool_(True)))
     jn = _state_np(js)
     ts = convert.state_from_jax_numpy(jn, device="cpu")
     back = convert.state_to_numpy(ts)
     assert back["local_map.desc"][0, 0] == 0xDEADBEEF
+    assert back["mod_prev.kp_desc"][1, 2] == 0xCAFEF00D
     assert ts.local_map.desc.dtype == torch.int32
+    assert ts.mod_prev.kp_desc.dtype == torch.int32
+    assert ts.detector is None
     flat = {
         "stamp": jn.stamp, "traj": jn.traj, "pose.R": jn.pose.R,
         "pose.t": jn.pose.t, "vis_peak": jn.vis_peak,
@@ -59,6 +71,8 @@ def test_state_round_trip():
                  for f in jn.model.surfels._fields})
     flat.update({f"local_map.{f}": getattr(jn.local_map, f)
                  for f in jn.local_map._fields})
+    flat.update({f"mod_prev.{f}": getattr(jn.mod_prev, f)
+                 for f in jn.mod_prev._fields})
     assert set(flat) == set(back)
     for k, v in flat.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
@@ -116,8 +130,11 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
 
 def test_unported_options_are_refused():
     base = small_config(tcfg)
-    for cfg in (dataclasses.replace(base, mod=tcfg.MODConfig(enabled=True)),
-                dataclasses.replace(base, enable_loop_closure=True)):
+    mod = tcfg.MODConfig(enabled=True, temporal_heat=True)
+    for cfg in (dataclasses.replace(base, mod=mod),
+                dataclasses.replace(base, enable_loop_closure=True),
+                dataclasses.replace(base,
+                                    ferns=tcfg.FernsConfig(enabled=True))):
         with pytest.raises(NotImplementedError):
             tpipe.init_state(cfg, device="cpu")
 

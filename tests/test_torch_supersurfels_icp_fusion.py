@@ -24,6 +24,11 @@ from test_icp import CAM as ICP_CAM
 from test_icp import CS as ICP_CS
 from test_icp import make_frame_and_model
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and each process's OpenMP threads spinning against the others' made the
+# torch tests about 20 times slower on an 8-core machine.
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

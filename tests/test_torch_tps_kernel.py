@@ -17,6 +17,11 @@ from supersurfel_fusion_tpu_torch.ops import tps_cuda
 
 from test_torch_depth_tps import scene
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and each process's OpenMP threads spinning against the others' made the
+# torch tests about 20 times slower on an 8-core machine.
+torch.set_num_threads(1)
+
 
 def test_reference_matches_pallas_interpret():
     """Thresholds of tests/test_tps_pallas.py: the Pallas kernel keeps its

@@ -27,6 +27,11 @@ from supersurfel_fusion_tpu_torch.ops import tps_cuda
 
 from test_torch_depth_tps import scene
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and each process's OpenMP threads spinning against the others' made the
+# torch tests about 20 times slower on an 8-core machine.
+torch.set_num_threads(1)
+
 CS = 16
 # an output tile that divides neither frame; even height and a width that
 # is a multiple of 4, as the kernel's tiles keep the checkerboard parity
