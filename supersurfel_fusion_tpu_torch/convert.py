@@ -1,8 +1,9 @@
 """State and weights carried across from the JAX package.
 
 The carried-over state is the SLAM state itself (model SoA, pose, stamp,
-VO local map, MOD context, trajectory ring) and, on the MOD path with the
-person detector, the detector's weights. `state_from_jax_numpy` builds the
+VO local map, MOD context, keyframe store and loop-closure counters,
+trajectory ring) and, on the MOD path with the person detector, the
+detector's weights. `state_from_jax_numpy` builds the
 port's `SLAMState` from a JAX `SLAMState` whose leaves were turned into
 numpy arrays (for example with `jax.tree.map(np.asarray, state)`), so both
 packages can start from the same state; `detector_from_numpy` builds the
@@ -12,11 +13,15 @@ and keys by name and import nothing of JAX.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
 from supersurfel_fusion_tpu_torch.device import resolve_device
 from supersurfel_fusion_tpu_torch.models.person_detector import PersonDetector
+from supersurfel_fusion_tpu_torch.ops.ferns import FernDB
+from supersurfel_fusion_tpu_torch.ops.loop_closure import KeyframeStore
 from supersurfel_fusion_tpu_torch.ops.motion import MODPrev
 from supersurfel_fusion_tpu_torch.ops.vo import LocalMap
 from supersurfel_fusion_tpu_torch.pipeline import SLAMState
@@ -53,12 +58,49 @@ def state_from_jax_numpy(state, device: str | torch.device = "cuda"
                            _t(lm.counters, dev, i32),
                            _t(lm.valid, dev, torch.bool)),
         mod_prev=MODPrev(*(_t(getattr(mp, f), dev) for f in MODPrev._fields)),
+        kf_store=keyframe_store_from_numpy(state.kf_store, dev),
+        prev_fern_id=_t(state.prev_fern_id, dev, i32),
+        last_lc_stamp=_t(state.last_lc_stamp, dev, i32),
+        lc_count=_t(state.lc_count, dev, i32),
         vis_peak=_t(state.vis_peak, dev, i32),
         dropped_total=_t(state.dropped_total, dev, i32),
         traj=_t(state.traj, dev, torch.float32),
         detector=None if params is None
         else detector_from_numpy(params).to(dev),
     )
+
+
+def keyframe_store_from_numpy(ks, device: str | torch.device = "cuda"
+                              ) -> KeyframeStore:
+    """Port `KeyframeStore` from a JAX `KeyframeStore` with numpy leaves
+    (descriptor words as int32 bit patterns)."""
+    dev = resolve_device(device)
+    db = FernDB(_t(ks.db.codes, dev, torch.uint8),
+                _t(ks.db.poses_R, dev, torch.float32),
+                _t(ks.db.poses_t, dev, torch.float32),
+                _t(ks.db.stamps, dev, torch.int32),
+                _t(ks.db.count, dev, torch.int32))
+    return KeyframeStore(db, *(
+        _t(getattr(ks, f), dev, torch.bool if f.endswith("valid") else None)
+        for f in KeyframeStore._fields[1:]))
+
+
+def state_from_numpy(flat: dict, device: str | torch.device = "cuda",
+                     detector: PersonDetector | None = None) -> SLAMState:
+    """Port `SLAMState` from the flat dict of `state_to_numpy` (descriptor
+    words as uint32 or int32), with `detector` as its person detector."""
+    root = SimpleNamespace()
+    for name, value in flat.items():
+        node = root
+        *path, leaf = name.split(".")
+        for part in path:
+            if not hasattr(node, part):
+                setattr(node, part, SimpleNamespace())
+            node = getattr(node, part)
+        setattr(node, leaf, value)
+    state = state_from_jax_numpy(root, device)
+    return state if detector is None else state._replace(
+        detector=detector.to(state.stamp.device))
 
 
 def detector_from_numpy(params: dict) -> PersonDetector:
@@ -84,6 +126,13 @@ def state_to_numpy(state: SLAMState) -> dict:
     for f in MODPrev._fields:
         a = getattr(state.mod_prev, f).cpu().numpy()
         out[f"mod_prev.{f}"] = a.view(np.uint32) if f == "kp_desc" else a
+    for f in FernDB._fields:
+        out[f"kf_store.db.{f}"] = getattr(state.kf_store.db, f).cpu().numpy()
+    for f in KeyframeStore._fields[1:]:
+        a = getattr(state.kf_store, f).cpu().numpy()
+        out[f"kf_store.{f}"] = a.view(np.uint32) if f == "kp_desc" else a
+    for f in ("prev_fern_id", "last_lc_stamp", "lc_count"):
+        out[f] = getattr(state, f).cpu().numpy()
     out["vis_peak"] = state.vis_peak.cpu().numpy()
     out["dropped_total"] = state.dropped_total.cpu().numpy()
     out["traj"] = state.traj.cpu().numpy()

@@ -13,10 +13,17 @@ sync. On a CUDA device the TPS iteration loop runs on the hand-written
 kernels of `ops/tps_cuda.py`; on the CPU it runs the plain `ops/tps.py`.
 Moving-object detection (`mod.enabled`, with the person detector when
 `mod.use_yolo` names weights) marks dynamic superpixels, which are kept
-out of VO, ICP, fusion and the local map. Ferns, loop closure and the
-options measured and rejected in the JAX package are refused. Each stage
-runs under a `torch.profiler.record_function` range named "ssf.<stage>",
-which `tools/profile_frame.py` reads.
+out of VO, ICP, fusion and the local map. Ferns (`ferns.enabled`) look
+each frame up among the keyframes and store new ones; loop closure
+(`enable_loop_closure`) then relocalizes a revisit against its keyframe
+and deforms the map. The options measured and rejected in the JAX package
+are refused. Each stage runs under a `torch.profiler.record_function`
+range named "ssf.<stage>", which `tools/profile_frame.py` reads.
+
+One step needs the host: with loop closure on, the frame step reads the
+fern gate once per frame and runs `close_global_loop` only on a frame
+where it fires (the JAX package's `lax.cond`). That is one host wait per
+frame, and none with loop closure off.
 """
 
 from __future__ import annotations
@@ -30,12 +37,16 @@ from torch.profiler import record_function
 
 from supersurfel_fusion_tpu_torch.config import PipelineConfig
 from supersurfel_fusion_tpu_torch.device import resolve_device
+from supersurfel_fusion_tpu_torch.eval.trajectory import mat_to_quat_np
 from supersurfel_fusion_tpu_torch.models.person_detector import (
     PersonDetector,
     load_detector,
 )
+from supersurfel_fusion_tpu_torch.ops import deformation
+from supersurfel_fusion_tpu_torch.ops import ferns as ferns_ops
 from supersurfel_fusion_tpu_torch.ops import fusion as fusion_ops
 from supersurfel_fusion_tpu_torch.ops import icp as icp_ops
+from supersurfel_fusion_tpu_torch.ops import loop_closure as lc_ops
 from supersurfel_fusion_tpu_torch.ops import motion as motion_ops
 from supersurfel_fusion_tpu_torch.ops import tps as tps_ops
 from supersurfel_fusion_tpu_torch.ops import tps_cuda
@@ -59,14 +70,18 @@ Tensor = torch.Tensor
 
 
 class SLAMState(NamedTuple):
-    """The state carried across frames (the JAX SLAMState without the fern
-    and keyframe-store fields, which come with the loop-closure slice)."""
+    """The state carried across frames (the JAX SLAMState; the person
+    detector takes the place of its parameter dict)."""
 
     model: ModelState
     pose: Pose               # camera -> world
     stamp: Tensor            # () int32
     local_map: vo_ops.LocalMap
     mod_prev: motion_ops.MODPrev
+    kf_store: lc_ops.KeyframeStore
+    prev_fern_id: Tensor     # () int32
+    last_lc_stamp: Tensor    # () int32
+    lc_count: Tensor         # () int32 accepted loop closures
     vis_peak: Tensor         # () int32 peak visible count
     dropped_total: Tensor    # () int32 insertions dropped at capacity
     # (max_frames, 12) float32 — per-frame pose [R.flat(9) | t(3)] written at
@@ -94,22 +109,26 @@ class FrameOutput(NamedTuple):
     n_fused: Tensor
     n_inserted: Tensor
     n_removed: Tensor
+    # with ferns on: the best keyframe, whether the frame is a new one
+    fern_id: Optional[Tensor] = None     # () int32
+    fern_new: Optional[Tensor] = None    # () bool
+    # with loop closure on: the gate (read on the host) and the verdict
+    lc_gate: Optional[bool] = None
+    lc_accepted: Optional[Tensor] = None  # () bool
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise for the options the port does not run: loop closure comes
-    with its slice; temporal heat, the whole-update freeze and the
-    insertion gate were measured and rejected in the JAX package."""
+    """Raise for the options the port does not run: temporal heat, the
+    whole-update freeze and the insertion gate were measured and rejected
+    in the JAX package."""
     off = {
         "mod.temporal_heat": cfg.mod.enabled and cfg.mod.temporal_heat,
-        "ferns.enabled": cfg.ferns.enabled,
-        "enable_loop_closure": cfg.enable_loop_closure,
         "fusion.freeze_on_tracking_loss": cfg.fusion.freeze_on_tracking_loss,
         "fusion.insert_requires_icp": cfg.fusion.insert_requires_icp,
     }
     on = [k for k, v in off.items() if v]
     if on:
-        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
+        raise NotImplementedError(f"not ported: {', '.join(on)}")
 
 
 def init_state(cfg: PipelineConfig,
@@ -128,6 +147,9 @@ def init_state(cfg: PipelineConfig,
     detector = None
     if cfg.mod.enabled and cfg.mod.use_yolo and cfg.mod.weights_path:
         detector = load_detector(cfg.mod.weights_path, dev)
+    if cfg.enable_loop_closure and cfg.enable_sparse_vo \
+            and dev.type == "cuda":
+        deformation.warm_up(dev)
     return SLAMState(
         model=model,
         pose=Pose.identity(dev),
@@ -135,6 +157,12 @@ def init_state(cfg: PipelineConfig,
         local_map=vo_ops.LocalMap.empty(cfg.vo.local_map_capacity, dev),
         mod_prev=motion_ops.init_prev(cfg.cam.height, cfg.cam.width,
                                       kp_cap, cfg.tps.cell_size, dev),
+        kf_store=lc_ops.KeyframeStore.empty(
+            cfg.ferns.max_keyframes, cfg.ferns.nb_ferns, kp_cap,
+            cfg.nb_superpixels, dev),
+        prev_fern_id=torch.full((), -1, **i32),
+        last_lc_stamp=torch.full((), -(10**6), **i32),
+        lc_count=torch.zeros((), **i32),
         vis_peak=torch.zeros((), **i32),
         dropped_total=torch.zeros((), **i32),
         traj=torch.zeros((cfg.max_frames, 12), dtype=torch.float32,
@@ -149,10 +177,18 @@ def _segment(rgb: Tensor, disp: Tensor, cfg: PipelineConfig):
     return tps_ops.segment(rgb, disp, cfg.tps)
 
 
+def _target_maps(frame: Supersurfels, labels: Tensor, plane_depth: Tensor,
+                 cfg: PipelineConfig) -> Tensor:
+    return icp_ops.build_target_maps(
+        frame, labels, plane_depth, cfg.cam, cfg.tps.cell_size,
+        cfg.fusion.range_min, cfg.fusion.range_max)
+
+
 def _icp_step(state: SLAMState, frame: Supersurfels, labels: Tensor,
               plane_depth: Tensor, pose: Pose, cfg: PipelineConfig):
     """Dense ICP against the visible model prefix; the pose takes the
-    correction where ICP is valid. Returns (ICPResult, pose)."""
+    correction where ICP is valid. Returns (ICPResult, pose, the frame's
+    target maps or None with ICP off)."""
     dev = labels.device
     if not cfg.enable_icp:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -162,12 +198,10 @@ def _icp_step(state: SLAMState, frame: Supersurfels, labels: Tensor,
             inliers=torch.zeros((), **f32), error=torch.zeros((), **f32),
             code=torch.zeros((), dtype=torch.int32, device=dev),
             cov_diag=torch.zeros((6,), **f32))
-        return icp, pose
+        return icp, pose, None
     R_view = pose.R.T
     t_view = -(R_view @ pose.t)
-    target_maps = icp_ops.build_target_maps(
-        frame, labels, plane_depth, cfg.cam, cfg.tps.cell_size,
-        cfg.fusion.range_min, cfg.fusion.range_max)
+    target_maps = _target_maps(frame, labels, plane_depth, cfg)
     vcap = min(cfg.fusion.visible_cap, cfg.fusion.nb_supersurfels_max)
     icp = icp_ops.symmetric_icp(
         state.model.surfels.prefix(vcap), state.model.nb_visible,
@@ -176,12 +210,29 @@ def _icp_step(state: SLAMState, frame: Supersurfels, labels: Tensor,
     R_new = orthonormalize(pose.R @ icp.R_rel)
     t_new = pose.R @ icp.t_rel + pose.t
     return icp, Pose(torch.where(use, R_new, pose.R),
-                     torch.where(use, t_new, pose.t))
+                     torch.where(use, t_new, pose.t)), target_maps
+
+
+def keypoints_3d(kp, fdepth: Tensor, cfg: PipelineConfig):
+    """Keypoint 3D positions (camera frame) from the filtered depth, and
+    whether their depth is in range (computeFilteredKeypoints3D)."""
+    cam = cfg.cam
+    ui = torch.clamp(torch.round(kp.xy[:, 0]).to(torch.int64), 0,
+                     cam.width - 1)
+    vi = torch.clamp(torch.round(kp.xy[:, 1]).to(torch.int64), 0,
+                     cam.height - 1)
+    zk = fdepth[vi, ui]
+    ok = (zk >= cfg.fusion.range_min) & (zk <= cfg.fusion.range_max)
+    p3d = torch.stack([zk * (kp.xy[:, 0] - cam.cx) / cam.fx,
+                       zk * (kp.xy[:, 1] - cam.cy) / cam.fy, zk], dim=-1)
+    return p3d, ok
 
 
 def _upload(a, dev: torch.device) -> Tensor:
     """Host frame -> device. From pinned memory the copy is asynchronous,
     so the host can queue the frame's work without waiting for the GPU."""
+    if isinstance(a, np.ndarray) and not a.flags.writeable:
+        a = a.copy()       # a decoded PNG: torch wants writable memory
     t = torch.as_tensor(a)
     if dev.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(dev, non_blocking=True)
@@ -286,8 +337,70 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
 
     # 9. dense symmetric ICP refinement against the visible model
     with record_function("ssf.icp"):
-        icp, pose = _icp_step(state, frame, tps.labels, plane_depth, pose,
-                              cfg)
+        icp, pose, target_maps = _icp_step(state, frame, tps.labels,
+                                           plane_depth, pose, cfg)
+
+    # 10-11. fern place recognition + global loop closure
+    kf_store = state.kf_store
+    prev_fern_id = state.prev_fern_id
+    last_lc = state.last_lc_stamp
+    lc_count = state.lc_count
+    model_surfels = state.model.surfels
+    fern_out = {}
+    use_ferns = (cfg.ferns.enabled or cfg.enable_loop_closure) \
+        and cfg.enable_sparse_vo
+    if use_ferns:
+        with record_function("ssf.ferns"):
+            table = ferns_ops.make_fern_table(cfg.ferns, cam.width,
+                                              cam.height,
+                                              cfg.fusion.range_max, dev)
+            codes = ferns_ops.compute_codes(rgb, fdepth, *table,
+                                            cfg.ferns.pyramid_level)
+            best_id, _, is_new = ferns_ops.query(kf_store.db, codes,
+                                                 cfg.ferns.new_frame_thresh)
+            kp_p3d, kp_depth_ok = keypoints_3d(kp, fdepth, cfg)
+        fern_out = dict(fern_id=best_id, fern_new=is_new)
+    if use_ferns and cfg.enable_loop_closure:
+        with record_function("ssf.loop_closure"):
+            db = kf_store.db
+            gap = cfg.ferns.min_frame_gap
+            kf_stamp_best = lc_ops.take_row(db.stamps, best_id)
+            gate = (~is_new & (db.count > 0) & (best_id != prev_fern_id)
+                    & (state.stamp - last_lc > gap)
+                    & (state.stamp - kf_stamp_best > gap))
+            # the one host wait of the frame step: the branch runs only
+            # on a frame where the gate fires
+            fire = bool(gate)
+            accepted = torch.zeros((), dtype=torch.bool, device=dev)
+            if fire:
+                if target_maps is None:
+                    target_maps = _target_maps(frame, tps.labels,
+                                               plane_depth, cfg)
+                lc = lc_ops.close_global_loop(
+                    kf_store, best_id, model_surfels,
+                    state.model.nb_supersurfels, frame, kp, kp_p3d,
+                    kp_depth_ok, target_maps, pose, state.stamp, cam,
+                    cfg.icp)
+                accepted = lc.accepted
+                pose = lc.pose
+                model_surfels = lc.model
+                kf_store = kf_store._replace(db=db._replace(
+                    poses_R=lc.kf_poses_R, poses_t=lc.kf_poses_t))
+                last_lc = torch.where(accepted, state.stamp, last_lc)
+                lc_count = lc_count + accepted.to(torch.int32)
+                # an accepted closure resets the VO local map at the
+                # corrected pose
+                reset_map = vo_ops.reset_local_map(
+                    kp, fdepth, pose.R, pose.t, cam,
+                    cfg.vo.local_map_capacity)
+                lmap = vo_ops.LocalMap(*(
+                    torch.where(accepted.reshape((1,) * a.ndim), a, b)
+                    for a, b in zip(reset_map, lmap)))
+        fern_out.update(lc_gate=fire, lc_accepted=accepted)
+    if use_ferns:
+        # a new keyframe takes the next id (ferns.cu: bestKeyFrameId =
+        # keyFrames.size())
+        prev_fern_id = torch.where(is_new, kf_store.db.count, best_id)
 
     # 12. local-map maintenance with the final fused pose
     if cfg.enable_sparse_vo:
@@ -300,8 +413,16 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     # 13. model update / bootstrap
     with record_function("ssf.fusion"):
         model, fusion_stats = fusion_ops.update_model(
-            state.model, frame, tps.labels, plane_depth, pose.R, pose.t, cam,
-            cfg.fusion, cfg.conf_thresh, state.stamp)
+            state.model._replace(surfels=model_surfels), frame, tps.labels,
+            plane_depth, pose.R, pose.t, cam, cfg.fusion, cfg.conf_thresh,
+            state.stamp)
+
+    # 14. new-keyframe snapshot (Ferns::addKeyFrame), masked on the device
+    if use_ferns:
+        with record_function("ssf.ferns"):
+            kf_store = lc_ops.add_keyframe_payload(
+                kf_store, codes, pose, state.stamp, kp, kp_p3d, kp_depth_ok,
+                frame, when=is_new)
 
     # this frame's pose into the on-device trajectory ring (frames past
     # max_frames overwrite the last slot)
@@ -311,7 +432,8 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
 
     new_state = SLAMState(
         model=model, pose=pose, stamp=state.stamp + 1, local_map=lmap,
-        mod_prev=mod_prev,
+        mod_prev=mod_prev, kf_store=kf_store, prev_fern_id=prev_fern_id,
+        last_lc_stamp=last_lc, lc_count=lc_count,
         vis_peak=torch.maximum(state.vis_peak, model.nb_visible),
         dropped_total=state.dropped_total + fusion_stats.n_dropped,
         traj=traj,
@@ -334,26 +456,9 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
         n_fused=fusion_stats.n_fused,
         n_inserted=fusion_stats.n_inserted,
         n_removed=fusion_stats.n_removed,
+        **fern_out,
     )
     return new_state, out
-
-
-def mat_to_quat_np(R: np.ndarray) -> np.ndarray:
-    """3x3 rotation -> (qx, qy, qz, qw)."""
-    tr = np.trace(R)
-    if tr > 0:
-        s = np.sqrt(tr + 1.0) * 2
-        return np.array([(R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
-                         (R[1, 0] - R[0, 1]) / s, 0.25 * s])
-    i = int(np.argmax(np.diag(R)))
-    j, k = (i + 1) % 3, (i + 2) % 3
-    s = np.sqrt(R[i, i] - R[j, j] - R[k, k] + 1.0) * 2
-    q = np.zeros(4)
-    q[i] = 0.25 * s
-    q[j] = (R[j, i] + R[i, j]) / s
-    q[k] = (R[k, i] + R[i, k]) / s
-    q[3] = (R[k, j] - R[j, k]) / s
-    return q
 
 
 class SupersurfelFusion:

@@ -120,6 +120,8 @@ BOX_SIZE = np.array([0.5, 1.2, 0.3])
 BOX_X0 = -0.35
 BOX_Z = 2.2
 BOX_STEP = 0.02
+# frames out (and back) of the revisit clip
+REVISIT_OUT = 16
 _BOX_BASE = np.array([90.0, 200.0, 110.0])
 
 
@@ -172,6 +174,64 @@ def dynamic_frames(cam: CameraIntrinsics, n: int, step: float = BOX_STEP):
     return out
 
 
+def revisit_trajectory(n_out: int = REVISIT_OUT) -> list:
+    """2 n_out + 1 camera->world poses (R, t) in float64: from the identity
+    the camera tilts 23 degrees down to the floor, turns 17 degrees right
+    and slides 0.2 m right, on a cosine ramp over n_out frames (at most
+    2.8 degrees and 2 cm per frame), then retraces the same poses back to
+    the start: frame 2 n_out - k repeats frame k. The floor's colour and
+    depth differ from the back wall's, so the far poses give the fern
+    detector new keyframes, and the way back revisits the first one."""
+    out = []
+    for k in range(n_out + 1):
+        s = 0.5 * (1.0 - np.cos(np.pi * k / n_out))
+        R = axis_angle([0.0, 1.0, 0.0], 0.3 * s) \
+            @ axis_angle([1.0, 0.0, 0.0], -0.4 * s)
+        out.append((R, np.array([0.2 * s, 0.0, 0.0])))
+    return out + out[-2::-1]
+
+
+def revisit_frames(cam: CameraIntrinsics, n_out: int = REVISIT_OUT):
+    """The revisit clip for loop closure: the static scene along
+    `revisit_trajectory(n_out)`, a list of (rgb, depth, (R, t)) tuples."""
+    return [(*render(cam, R, t), (R, t)) for R, t in revisit_trajectory(n_out)]
+
+
+def write_tum_sequence(root, clip, fps: float = 30.0, t0: float = 1000.0):
+    """Write frames of a clip ((rgb, depth, (R, t)), ...) as a TUM RGB-D
+    sequence directory: rgb/ and depth/ PNGs (8-bit RGB; 16-bit depth, 5000
+    counts per metre) through PIL, rgb.txt, depth.txt, groundtruth.txt and
+    associations_with_gt.txt (what `io/tum.py` reads first). Returns the
+    frames' timestamps."""
+    import os
+
+    from PIL import Image
+
+    from supersurfel_fusion_tpu_torch.eval.trajectory import mat_to_quat_np
+
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    stamps, rgb_l, dep_l, gt_l, assoc = [], [], [], [], []
+    for k, (rgb, depth, (R, t)) in enumerate(clip):
+        ts = t0 + k / fps
+        rgb_f, dep_f = f"rgb/{ts:.6f}.png", f"depth/{ts:.6f}.png"
+        Image.fromarray(rgb).save(os.path.join(root, rgb_f))
+        Image.fromarray(depth).save(os.path.join(root, dep_f))
+        pose = " ".join(f"{v:.9f}" for v in np.concatenate(
+            [t, mat_to_quat_np(np.asarray(R))]))
+        stamps.append(float(f"{ts:.6f}"))
+        rgb_l.append(f"{ts:.6f} {rgb_f}")
+        dep_l.append(f"{ts:.6f} {dep_f}")
+        gt_l.append(f"{ts:.6f} {pose}")
+        assoc.append(f"{ts:.6f} {rgb_f} {ts:.6f} {dep_f} {ts:.6f} {pose}")
+    for name, lines in (("rgb.txt", rgb_l), ("depth.txt", dep_l),
+                        ("groundtruth.txt", gt_l),
+                        ("associations_with_gt.txt", assoc)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return stamps
+
+
 def mover_scores(labels: np.ndarray, static_sp: np.ndarray,
                  mover: np.ndarray) -> dict:
     """Grade one frame's MOD result against the rendered mover mask.
@@ -194,12 +254,14 @@ def mover_scores(labels: np.ndarray, static_sp: np.ndarray,
             "static_dynamic": int((static & dyn).sum())}
 
 
-def translation_errors(traj_rows) -> np.ndarray:
+def translation_errors(traj_rows, poses=None) -> np.ndarray:
     """Per-frame distance (m) between the positions of a run's TUM rows
     (tx ty tz qx qy qz qw), one per frame from frame 0, and the clip's
-    known trajectory."""
+    known trajectory: `poses` ((R, t) pairs), by default `trajectory`'s."""
     traj = np.asarray(traj_rows, dtype=np.float64)
-    gt = np.array([t for _, t in trajectory(len(traj))])
+    if poses is None:
+        poses = trajectory(len(traj))
+    gt = np.array([t for _, t in poses[:len(traj)]])
     return np.linalg.norm(traj[:, :3] - gt, axis=1)
 
 

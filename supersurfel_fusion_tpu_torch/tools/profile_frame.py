@@ -1,12 +1,15 @@
 """Where the time of the frame step goes, on one CUDA card.
 
     python -m supersurfel_fusion_tpu_torch.tools.profile_frame \\
-        [--mod] [--frames 6] [--warmup 4] [--trace PATH.json]
+        [--mod | --lc] [--frames 6] [--warmup 4] [--trace PATH.json]
 
 Drives the default `PipelineConfig` through `SupersurfelFusion` on the
-synthetic clip or, with `--mod`, bench's fr3 MOD configuration (fr3
+synthetic clip; with `--mod`, bench's fr3 MOD configuration (fr3
 camera, moving-object detection with the person detector's committed
-weights) on the synthetic dynamic clip, then prints:
+weights) on the synthetic dynamic clip; with `--lc`, the default
+configuration with ferns and loop closure on (`lc_config`) on the revisit
+clip, whose frames 0-16 hold no closure (the closure frame is timed by
+`chip_smoke.py`). Then it prints:
 
 * the card's name and power limit (nvidia-smi);
 * the kernel launches per frame;
@@ -44,6 +47,7 @@ from torch.autograd import DeviceType
 from supersurfel_fusion_tpu_torch import synthetic
 from supersurfel_fusion_tpu_torch.config import (
     CameraIntrinsics,
+    FernsConfig,
     MODConfig,
     PipelineConfig,
 )
@@ -120,10 +124,21 @@ def mod_config() -> PipelineConfig:
                                         weights_path=str(weights)))
 
 
+def lc_config(min_frame_gap: int = 8) -> PipelineConfig:
+    """The default configuration with ferns and loop closure on (500
+    ferns, 512 keyframes), and the revisit test's `min_frame_gap`."""
+    return PipelineConfig(enable_loop_closure=True,
+                          ferns=FernsConfig(enabled=True,
+                                            min_frame_gap=min_frame_gap))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mod", action="store_true",
-                    help="the fr3 MOD configuration on the dynamic clip")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--mod", action="store_true",
+                      help="the fr3 MOD configuration on the dynamic clip")
+    mode.add_argument("--lc", action="store_true",
+                      help="ferns and loop closure on, on the revisit clip")
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--trace", default="")
@@ -136,12 +151,20 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    cfg = mod_config() if args.mod else PipelineConfig()
     n = args.warmup + 2 * args.frames + 1
-    clip = (synthetic.dynamic_frames(cfg.cam, n) if args.mod
-            else synthetic.frames(cfg.cam, n))
-    print(f"config: {'fr3 MOD, dynamic clip' if args.mod else 'default'}",
-          flush=True)
+    if args.mod:
+        name, cfg = "fr3 MOD, dynamic clip", mod_config()
+        clip = synthetic.dynamic_frames(cfg.cam, n)
+    elif args.lc:
+        name, cfg = "loop closure, revisit clip", lc_config()
+        clip = synthetic.revisit_frames(cfg.cam)[:n]
+        if n > synthetic.REVISIT_OUT + 1:
+            raise SystemExit(f"--lc profiles frames 0-{synthetic.REVISIT_OUT}"
+                             f" (before the revisit); asked for {n}")
+    else:
+        name, cfg = "default", PipelineConfig()
+        clip = synthetic.frames(cfg.cam, n)
+    print(f"config: {name}", flush=True)
     slam = SupersurfelFusion(cfg, device="cuda")
     it = iter(enumerate(clip))
 
@@ -225,7 +248,8 @@ def main(argv=None) -> int:
         print(f"  {count:5d}  {where}")
 
     mod = next((e for e in stages if e.key == "ssf.mod"), None)
-    summary = {"config": "fr3_mod" if args.mod else "default",
+    summary = {"config": ("fr3_mod" if args.mod
+                          else "loop_closure" if args.lc else "default"),
                "ms_per_frame_synced": float(np.mean(host_ms)),
                "device_busy_ms_per_frame": busy_us / per / 1e3,
                "device_busy_share": busy_us / wall_us,
@@ -237,6 +261,15 @@ def main(argv=None) -> int:
                "tps_kernels_ms_per_frame":
                    sum(_device_us(e, True) for e in tps) / per / 1e3,
                "host_syncs_per_frame": sum(c for _, c in syncs)}
+    for key in ("ssf.ferns", "ssf.loop_closure"):
+        e = next((e for e in stages if e.key == key), None)
+        if e is not None:
+            summary[f"{key[4:]}_launches_per_frame"] = by_stage.get(key, 0.0)
+            summary[f"{key[4:]}_device_ms_per_frame"] = \
+                _device_us(e, False) / per / 1e3
+    if args.lc:
+        summary["keyframe_store_mib"] = \
+            slam.state.kf_store.nbytes() / 2**20
     if mod is not None:
         summary.update(mod_host_ms_per_frame=mod.cpu_time_total / per / 1e3,
                        mod_device_ms_per_frame=_device_us(mod, False)

@@ -2,18 +2,23 @@
 port, each free-running on the CPU.
 
 Run as a script, it measures what `chip_smoke.py`'s limits rest on, at
-640x480 over 30 frames of both clips:
+640x480 over 30 frames of the static and dynamic clips:
 
     python tests/test_torch_clip_reference.py [--frames 30] [--out FILE]
+        [--clips static,dynamic] [--clip revisit]
 
 * the static clip (`synthetic.frames`) with the default configuration;
 * the dynamic clip (`synthetic.dynamic_frames`) with bench's fr3 MOD
-  configuration (fr3 camera, the person detector's committed weights).
+  configuration (fr3 camera, the person detector's committed weights);
+* the revisit clip (`synthetic.revisit_frames`, all 33 frames whatever
+  `--frames` says) with ferns and loop closure on and `min_frame_gap=8`.
 
 For each package and clip it prints the per-frame translation error
-against the known trajectory and, on the dynamic clip, the mover recall
-and the false-dynamic share (frames 2 onward), and writes them as JSON.
-As a test it runs the same code on three frames at 256x192.
+against the known trajectory; on the dynamic clip the mover recall and the
+false-dynamic share (frames 2 onward); on the revisit clip the keyframes,
+the frames the loop-closure gate fires on, the accepted closures and the
+drift before and after the first one. It writes them as JSON. As a test it
+runs the same code on three frames at 256x192.
 """
 
 import argparse
@@ -29,10 +34,13 @@ if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from supersurfel_fusion_tpu import config as jcfg  # noqa: E402
 from supersurfel_fusion_tpu import pipeline as jpipe  # noqa: E402
+from supersurfel_fusion_tpu.ops import ferns as jferns  # noqa: E402
+from supersurfel_fusion_tpu.ops.depth import bilateral_filter  # noqa: E402
 from supersurfel_fusion_tpu_torch import config as tcfg  # noqa: E402
 from supersurfel_fusion_tpu_torch import pipeline as tpipe  # noqa: E402
 from supersurfel_fusion_tpu_torch import synthetic  # noqa: E402
@@ -47,6 +55,10 @@ def clip_config(C, clip: str, small: bool = False):
     configuration for the dynamic one; `small` cuts either to 256x192 as
     the pipeline tests do."""
     kw = {}
+    if clip == "revisit":
+        kw = dict(enable_loop_closure=True,
+                  ferns=C.FernsConfig(enabled=True, min_frame_gap=8,
+                                      max_keyframes=16 if small else 512))
     if clip == "dynamic":
         kw = dict(cam=C.CameraIntrinsics.tum_fr3(),
                   mod=C.MODConfig(enabled=True, use_yolo=True,
@@ -59,6 +71,9 @@ def clip_config(C, clip: str, small: bool = False):
 
 def clip_frames(clip: str, cam, n: int, small: bool = False):
     """(rgb, depth, mover or None) per frame."""
+    if clip == "revisit":
+        return [(rgb, depth, None) for rgb, depth, _ in
+                synthetic.revisit_frames(cam)]
     if clip == "static":
         return [(rgb, depth, None) for rgb, depth, _ in
                 synthetic.frames(cam, n)]
@@ -69,29 +84,71 @@ def clip_frames(clip: str, cam, n: int, small: bool = False):
             synthetic.dynamic_frames(cam, n, step=step)]
 
 
+def jax_lc_gate(state, rgb, depth, cfg):
+    """The JAX frame step's fern lookup and loop-closure gate for the next
+    frame, from its state before the frame (the step keeps them internal):
+    (best keyframe, is_new, gate)."""
+    d = jnp.asarray(depth).astype(jnp.float32) * cfg.depth_scale
+    fd = bilateral_filter(d, cfg.bilateral_sigma_value,
+                          cfg.bilateral_sigma_space, cfg.bilateral_radius)
+    table = jferns.make_fern_table(cfg.ferns, cfg.cam.width, cfg.cam.height,
+                                   cfg.fusion.range_max)
+    codes = jferns.compute_codes(jnp.asarray(rgb, jnp.float32), fd, *table,
+                                 cfg.ferns.pyramid_level)
+    db = state.kf_store.db
+    best, _, is_new = jferns.query(db, codes, cfg.ferns.new_frame_thresh)
+    gap = cfg.ferns.min_frame_gap
+    best, is_new = int(best), bool(is_new)
+    gate = (not is_new and int(db.count) > 0
+            and best != int(state.prev_fern_id)
+            and int(state.stamp) - int(state.last_lc_stamp) > gap
+            and int(state.stamp) - int(db.stamps[best]) > gap)
+    return best, is_new, gate
+
+
 def run(package: str, clip: str, n: int, small: bool = False) -> dict:
     """Free-run one package over one clip. Returns the per-frame errors,
-    mover scores and wall time."""
+    mover scores, loop-closure events and wall time."""
     C = jcfg if package == "jax" else tcfg
     cfg = clip_config(C, clip, small)
     frames = clip_frames(clip, clip_config(tcfg, clip, small).cam, n, small)
     slam = (jpipe.SupersurfelFusionTPU(cfg) if package == "jax"
             else tpipe.SupersurfelFusion(cfg, device="cpu"))
-    scores, icp = [], []
+    scores, icp, gates, accepted = [], [], [], []
     t0 = time.time()
     for k, (rgb, depth, mover) in enumerate(frames):
+        if clip == "revisit" and package == "jax":
+            gate = jax_lc_gate(slam.state, rgb, depth, cfg)[2]
+            lc0 = int(slam.state.lc_count)
         out = slam.process(rgb, depth, timestamp=float(k))
         icp.append(bool(np.asarray(out.icp_valid)))
+        if clip == "revisit":
+            if package == "jax":
+                acc = int(slam.state.lc_count) > lc0
+            else:
+                gate, acc = out.lc_gate, bool(out.lc_accepted)
+            gates += [k] if gate else []
+            accepted += [k] if acc else []
         if mover is not None and k >= 2:
             scores.append(synthetic.mover_scores(
                 np.asarray(out.labels), np.asarray(out.static_sp), mover))
-    err = synthetic.translation_errors(slam.trajectory)
+    poses = synthetic.revisit_trajectory() if clip == "revisit" else None
+    err = synthetic.translation_errors(slam.trajectory, poses)
     res = {"package": package, "clip": clip, "frames": n,
            "seconds": time.time() - t0, "err": err.tolist(),
            "max_err": float(err.max()), "final_err": float(err[-1]),
            "icp_valid": float(np.mean(icp[1:]))}
     if scores:
         res.update(synthetic.mover_summary(scores))
+    if clip == "revisit":
+        res.update(keyframes=int(slam.state.kf_store.db.count),
+                   gate_frames=gates, accepted_frames=accepted,
+                   lc_count=int(slam.state.lc_count))
+        if accepted:
+            k = accepted[0]
+            res.update(err_before_closure=float(err[k - 1]),
+                       err_at_closure=float(err[k]),
+                       max_err_after_closure=float(err[k:].max()))
     return res
 
 
@@ -114,7 +171,7 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--out", default="")
     ap.add_argument("--packages", default="jax,port")
-    ap.add_argument("--clips", default="static,dynamic")
+    ap.add_argument("--clips", "--clip", default="static,dynamic")
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     results = []
@@ -127,6 +184,10 @@ def main(argv=None) -> int:
                      f"false-dynamic {r['false_dynamic']:.4f} "
                      f"({r['static_dynamic']}/{r['static_sp']})"
                      if "mover_recall" in r else "")
+            if clip == "revisit":
+                extra += (f", keyframes {r['keyframes']}, gate on "
+                          f"{r['gate_frames']}, accepted on "
+                          f"{r['accepted_frames']}")
             print(f"{package} {clip}: max err {r['max_err']:.4f} m, final "
                   f"{r['final_err']:.4f} m, icp valid {r['icp_valid']:.3f}"
                   f"{extra}, {r['seconds']:.1f} s", flush=True)

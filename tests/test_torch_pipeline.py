@@ -73,6 +73,12 @@ def test_state_round_trip():
                  for f in jn.local_map._fields})
     flat.update({f"mod_prev.{f}": getattr(jn.mod_prev, f)
                  for f in jn.mod_prev._fields})
+    flat.update({f"kf_store.db.{f}": getattr(jn.kf_store.db, f)
+                 for f in jn.kf_store.db._fields})
+    flat.update({f"kf_store.{f}": getattr(jn.kf_store, f)
+                 for f in jn.kf_store._fields if f != "db"})
+    flat.update(prev_fern_id=jn.prev_fern_id,
+                last_lc_stamp=jn.last_lc_stamp, lc_count=jn.lc_count)
     assert set(flat) == set(back)
     for k, v in flat.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
@@ -129,14 +135,21 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
 
 
 def test_unported_options_are_refused():
+    """The options measured and rejected in the JAX package are refused;
+    ferns and loop closure run."""
     base = small_config(tcfg)
     mod = tcfg.MODConfig(enabled=True, temporal_heat=True)
     for cfg in (dataclasses.replace(base, mod=mod),
-                dataclasses.replace(base, enable_loop_closure=True),
-                dataclasses.replace(base,
-                                    ferns=tcfg.FernsConfig(enabled=True))):
+                dataclasses.replace(base, fusion=tcfg.FusionConfig(
+                    freeze_on_tracking_loss=True)),
+                dataclasses.replace(base, fusion=tcfg.FusionConfig(
+                    insert_requires_icp=True))):
         with pytest.raises(NotImplementedError):
             tpipe.init_state(cfg, device="cpu")
+    for cfg in (dataclasses.replace(base, enable_loop_closure=True),
+                dataclasses.replace(base,
+                                    ferns=tcfg.FernsConfig(enabled=True))):
+        assert int(tpipe.init_state(cfg, device="cpu").lc_count) == 0
 
 
 def test_supersurfel_fusion_tracks_the_synthetic_clip():
