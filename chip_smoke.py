@@ -39,7 +39,21 @@ JAX, and:
 9. runner phase: a TUM-format directory of synthetic frames through
    `apps.run_benchmark.main` on the card, with and without
    `--loop-closure`: the JSON line, the trajectory file, the ATE;
-10. prints the kernel table as one JSON line and, last,
+10. live phase: the port's feeder (a subprocess) writes the 30-frame
+   static clip into a watch directory at 30 fps while `apps.run_live
+   --watch` runs on the card: every frame once and in stamp order, the
+   poses against the offline runner's on the same frames, fps, the
+   latency from a frame's file to its pose line, the largest backlog;
+   then a few frames through `--stdin`;
+11. sharded phases: the sharded frame step (`parallel/`) on the
+   loop-closure phase's clip and limits, then a few frames of the fr3
+   MOD configuration, on 1 rank over NCCL and on 2 ranks sharing the
+   card over gloo, each rank a spawned process: the ranks' bit-for-bit
+   agreement on every frame, the closure, the poses against the
+   single-device phase, ms per frame, collectives and bytes per frame,
+   host waits, peak memory per rank;
+12. prints the kernel table as one JSON line (launches summed over every
+   pipeline phase and every rank) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -55,7 +69,7 @@ import time
 import numpy as np
 
 # Total wall-time budget of the run, cold build included (seconds).
-BUDGET_S = 600.0
+BUDGET_S = 1000.0
 N_FRAMES = 30         # pipeline phase frames
 N_CPU_FRAMES = 3      # frames also run on the plain CPU path
 # detect_motion, card vs CPU on the same inputs: float scatter-adds are
@@ -106,6 +120,22 @@ LC_OPT_PRED_MAX = 1e-4
 # ATE limit as the static clip's drift limit
 RUNNER_FRAMES = 10
 RUNNER_ATE_MAX = 0.05
+# the live phase: the static clip fed at 30 fps into a watch directory;
+# the live runner's poses against the offline runner's on the same frames
+LIVE_FRAMES = 30
+LIVE_FPS = 30.0
+LIVE_IDLE_S = 3.0
+LIVE_POSE_MAX = 2e-3
+LIVE_STDIN_FRAMES = 3
+# the sharded phases: the loop-closure phase's clip and limits at 1 rank
+# (NCCL) and 2 ranks sharing the card (gloo); the poses against the
+# single-device loop-closure phase of the same call within limits set
+# from CPU runs before the first chip run (the JAX package's own limits
+# are 0.03 m and 0.1, tests/test_sharding.py)
+SHARD_CLOSURE_FRAME = 25
+SHARD_POSE_MAX = 0.03
+SHARD_ROT_MAX = 0.1
+SHARD_MOD_FRAMES = 4
 H100_HBM_BPS = 3.35e12
 H100_FP32_FLOPS = 67e12
 # device time per call of the earlier kernels these replace (the per-phase
@@ -485,7 +515,7 @@ def detector_phase(dev):
     rgb, depth, _, _ = synthetic.dynamic_frames(cfg.cam, 4)[3]
     gray = rgb_to_gray(torch.from_numpy(rgb).float())
     d = torch.from_numpy(depth.astype(np.float32)) * cfg.depth_scale
-    cpu = load_detector(weights)
+    cpu = load_detector(weights, "cpu")
     card = load_detector(weights, dev)
     gray_d, d_d = gray.to(dev), d.to(dev)
     hc, _ = cpu.maps(gray, d)
@@ -538,7 +568,7 @@ def motion_phase(dev):
 
     cfg = mod_config()
     clip = synthetic.dynamic_frames(cfg.cam, 6)
-    det_cpu = load_detector(cfg.mod.weights_path)
+    det_cpu = load_detector(cfg.mod.weights_path, "cpu")
     det_card = load_detector(cfg.mod.weights_path, dev)
     prev = None
     for k in (4, 5):
@@ -550,7 +580,7 @@ def motion_phase(dev):
         kp = detect_and_describe(gray, cfg.vo)
         if prev is None:
             prev = motion.init_prev(cfg.cam.height, cfg.cam.width,
-                                    kp.capacity)
+                                    kp.capacity, device="cpu")
         args = (gray, fe.fdepth, prev, kp, fe.frame, fe.tps)
         sc, kc, prev_next = motion.detect_motion(
             *args, cfg.cam, cfg.tps, cfg.mod, detector=det_cpu)
@@ -953,6 +983,7 @@ def lc_pipeline_phase(dev):
         "keyframes": kf, "gates": gates, "accepted": accepted,
         "max_err": float(err.max()), "closure_err": float(err[kc]),
         "ms_ordinary": float(np.median(ordinary) * 1e3),
+        "traj": traj,
         "ms_closure": frame_s[kc] * 1e3, "ms_closure_again": ms_closure_again,
         "init_s": init_s,
         "lc_device_ms": ms_lc_dev,
@@ -1027,6 +1058,429 @@ def runner_phase(dev):
 
 
 
+def _watch_lines(path, stop, seen):
+    """Poll `path` every 10 ms until `stop` is set; record when each line
+    appears (the file is read only when its size changed)."""
+    import os
+
+    n, size = 0, -1
+    while True:
+        done = stop.is_set()        # one more poll after the stop
+        try:
+            now_size = os.stat(path).st_size
+        except OSError:
+            now_size = -1
+        if now_size != size:
+            size = now_size
+            with open(path) as f:
+                m = sum(1 for _ in f)
+            now = time.time()
+            while n < m:
+                seen.append(now)
+                n += 1
+        if done:
+            return
+        time.sleep(0.01)
+
+
+def live_phase(dev):
+    """The port's feeder writes the static clip into a watch directory at
+    30 fps (a subprocess); `apps.run_live --watch` runs on the card. Every
+    frame once, in stamp order, poses as the offline runner's; latency and
+    backlog; then a few frames through `--stdin`."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import threading
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.apps import run_benchmark, run_live
+    from supersurfel_fusion_tpu_torch.config import PipelineConfig
+    from supersurfel_fusion_tpu_torch.io.tum import read_trajectory_file
+    from supersurfel_fusion_tpu_torch.ops import tps_cuda
+    from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
+
+    clip = synthetic.frames(PipelineConfig().cam, LIVE_FRAMES)
+    launches = {k: 0 for k in tps_cuda.launch_counts}
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "rgbd_dataset_freiburg1_synthetic")
+        stamps = synthetic.write_tum_sequence(seq, clip)
+        watch = os.path.join(tmp, "watch")
+        live_out = os.path.join(tmp, "live.txt")
+        stop = threading.Event()
+        seen = []
+        watcher = threading.Thread(target=_watch_lines,
+                                   args=(live_out, stop, seen))
+        tps_cuda.reset_launch_counts()
+        feeder = subprocess.Popen(
+            [sys.executable, "-m",
+             "supersurfel_fusion_tpu_torch.tools.stream_feeder",
+             "--dataset", seq, "--target", watch, "--fps", str(LIVE_FPS)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        buf = io.StringIO()
+        # the runner starts once the camera does: the feeder's process
+        # takes seconds to import the port, longer than the idle timeout
+        first = os.path.join(watch, "depth", f"{stamps[0]:.6f}.png")
+        t0 = time.time()
+        while not os.path.exists(first) and feeder.poll() is None \
+                and time.time() - t0 < 120:
+            time.sleep(0.01)
+        log(f"  feeder's first frame after {time.time() - t0:.1f} s")
+        watcher.start()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = run_live.main(["--watch", watch, "--out", live_out,
+                                    "--idle-timeout", str(LIVE_IDLE_S),
+                                    "--quiet"])
+        finally:
+            stop.set()
+            watcher.join(timeout=10)
+            try:
+                fed = feeder.communicate(timeout=60)[0].strip()
+            finally:
+                if feeder.poll() is None:
+                    feeder.kill()
+                    feeder.wait()
+        wall = time.time() - t0
+        for k, v in tps_cuda.launch_counts.items():
+            launches[k] += v
+        line = buf.getvalue().strip().splitlines()[-1]
+        res = json.loads(line)
+        log(f"  feeder: {fed} (exit {feeder.returncode}); live runner rc "
+            f"{rc} in {wall:.1f} s: {line}")
+        # a frame appears when its depth file is renamed into place
+        appear = [os.stat(os.path.join(watch, "depth", f"{ts:.6f}.png"))
+                  .st_mtime for ts in stamps]
+        live = read_trajectory_file(live_out)
+        with open(live_out) as f:
+            order = [float(ln.split()[0]) for ln in f if ln.strip()]
+        check(rc == 0 and feeder.returncode == 0
+              and res["frames"] == LIVE_FRAMES,
+              f"live runner consumed {LIVE_FRAMES} frames on the card")
+        check(order == stamps, "live runner: every fed frame once, in stamp "
+              "order")
+        check(len(seen) == LIVE_FRAMES, "every pose line was seen flushed")
+        lat = np.array(seen) - np.array(appear)
+        backlog = [int(sum(a <= t for a in appear)) - (k + 1)
+                   for k, t in enumerate(seen)]
+        log(f"  live: {res['fps']:.2f} fps; latency from a frame's file to "
+            f"its pose line median {np.median(lat) * 1e3:.1f} ms, max "
+            f"{lat.max() * 1e3:.1f} ms, first {lat[0] * 1e3:.1f} ms; largest "
+            f"backlog {max(backlog)} frames; feed {appear[-1] - appear[0]:.2f} "
+            f"s for {LIVE_FRAMES} frames")
+
+        off_out = os.path.join(tmp, "offline.txt")
+        tps_cuda.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_off = run_benchmark.main(["--dataset", seq, "--out", off_out,
+                                         "--quiet"])
+        for k, v in tps_cuda.launch_counts.items():
+            launches[k] += v
+        off_fps = json.loads(buf.getvalue().strip().splitlines()[-1])["fps"]
+        off = read_trajectory_file(off_out)
+        d = max(float(np.linalg.norm(np.asarray(live[ts][:3])
+                                     - np.asarray(off[ts][:3])))
+                for ts in stamps)
+        log(f"  live vs offline runner, same frames: max |dt| {d:.2e} m; "
+            f"offline runner {off_fps:.2f} fps")
+
+        # the same feed once more without the line watcher: its polling
+        # thread takes the interpreter lock from the host-bound step
+        watch2 = os.path.join(tmp, "watch2")
+        feeder = subprocess.Popen(
+            [sys.executable, "-m",
+             "supersurfel_fusion_tpu_torch.tools.stream_feeder",
+             "--dataset", seq, "--target", watch2, "--fps", str(LIVE_FPS)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        first = os.path.join(watch2, "depth", f"{stamps[0]:.6f}.png")
+        t0 = time.time()
+        while not os.path.exists(first) and feeder.poll() is None \
+                and time.time() - t0 < 120:
+            time.sleep(0.01)
+        buf = io.StringIO()
+        tps_cuda.reset_launch_counts()
+        # the host time of the runner's PNG decode and of the frame step's
+        # call (which queues the frame's work), per frame
+        split = {"decode": [], "process": []}
+        orig_load = run_live._load_png_pair
+        orig_process = SupersurfelFusion.process
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    split[name].append(time.perf_counter() - t1)
+            return call
+
+        run_live._load_png_pair = timed("decode", orig_load)
+        SupersurfelFusion.process = timed("process", orig_process)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = run_live.main(["--watch", watch2, "--out",
+                                    os.path.join(tmp, "live2.txt"),
+                                    "--idle-timeout", str(LIVE_IDLE_S),
+                                    "--quiet"])
+        finally:
+            run_live._load_png_pair = orig_load
+            SupersurfelFusion.process = orig_process
+            try:
+                feeder.wait(timeout=60)
+            finally:
+                if feeder.poll() is None:
+                    feeder.kill()
+                    feeder.wait()
+        for k, v in tps_cuda.launch_counts.items():
+            launches[k] += v
+        res2 = json.loads(buf.getvalue().strip().splitlines()[-1])
+        dec = np.median(split["decode"][1:]) * 1e3
+        proc = np.median(split["process"][1:]) * 1e3
+        log(f"  live runner without the line watcher: {res2['fps']:.2f} fps "
+            f"({res2['frames']} frames; {1e3 / max(res2['fps'], 1e-9):.1f} "
+            f"ms per frame: PNG decode median {dec:.1f} ms, the frame "
+            f"step's call {proc:.1f} ms, the rest (the pose read, which "
+            f"waits for the card, the line, the directory scan))")
+        check(rc == 0 and res2["frames"] == LIVE_FRAMES,
+              "live runner, second feed: every frame")
+        check(rc_off == 0 and d < LIVE_POSE_MAX,
+              f"live poses within {LIVE_POSE_MAX * 1e3:.0f} mm of the "
+              f"offline runner's")
+
+        lines = "".join(
+            f"{os.path.join(seq, 'rgb', f'{ts:.6f}.png')} "
+            f"{os.path.join(seq, 'depth', f'{ts:.6f}.png')} {ts:.6f}\n"
+            for ts in stamps[:LIVE_STDIN_FRAMES])
+        stdin_out = os.path.join(tmp, "stdin.txt")
+        old_stdin, buf = sys.stdin, io.StringIO()
+        sys.stdin = io.StringIO(lines)
+        tps_cuda.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = run_live.main(["--stdin", "--out", stdin_out,
+                                    "--quiet"])
+        finally:
+            sys.stdin = old_stdin
+        for k, v in tps_cuda.launch_counts.items():
+            launches[k] += v
+        got = read_trajectory_file(stdin_out)
+        check(rc == 0 and sorted(got) == stamps[:LIVE_STDIN_FRAMES]
+              and json.loads(buf.getvalue().strip().splitlines()[-1])
+              ["frames"] == LIVE_STDIN_FRAMES,
+              f"--stdin: {LIVE_STDIN_FRAMES} frames, one pose line each")
+    n_steps = 3 * LIVE_FRAMES + LIVE_STDIN_FRAMES
+    check(launches["tps_iteration"] == 10 * n_steps
+          and launches["tps_merge"] == 12 * n_steps,
+          "live phase: 10 tps_iteration and 12 tps_merge launches per frame")
+    return launches, {
+        "fps": res["fps"], "fps_unwatched": res2["fps"],
+        "decode_ms": float(dec), "process_ms": float(proc),
+        "fps_offline": off_fps,
+        "lat_median_ms": float(np.median(lat) * 1e3),
+        "lat_max_ms": float(lat.max() * 1e3), "backlog_max": max(backlog),
+        "vs_offline_m": d}
+
+
+def _agree(out, state, mesh) -> bool:
+    """Whether every rank holds the same pose bits and counts."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch.parallel.mesh import all_gather
+
+    bits = torch.cat([out.pose.R.reshape(-1), out.pose.t]).contiguous() \
+        .view(torch.int32)
+    cnt = torch.stack([out.nb_total, state.kf_store.db.count, state.lc_count,
+                       state.nb_visible_total]).to(torch.int32)
+    rows = all_gather(torch.cat([bits, cnt]), mesh)
+    return bool((rows == rows[:1]).all())
+
+
+def _sharded_rank(mesh, n_mod_frames: int) -> dict:
+    """One rank of a sharded phase: the loop-closure configuration over
+    the revisit clip, then a few frames of the fr3 MOD configuration on
+    the dynamic clip. Per frame: the pose, totals, flags, ms (host clock
+    around the step, synced), the step's collectives and bytes, and
+    whether all ranks agree bit for bit. Then the host waits of an
+    ordinary and of the closure frame, replayed from their states."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.ops import tps_cuda
+    from supersurfel_fusion_tpu_torch.parallel.pipeline_sharded import (
+        init_sharded_state,
+        make_process_frame_sharded,
+    )
+    from supersurfel_fusion_tpu_torch.tools.profile_frame import (
+        host_syncs,
+        lc_config,
+        mod_config,
+    )
+
+    cuda = mesh.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def run(cfg, clip, keep_gate):
+        t1 = time.time()
+        state = init_sharded_state(cfg, mesh)
+        step = make_process_frame_sharded(mesh, cfg)
+        sync()
+        init_s = time.time() - t1
+        recs, kept, prev = [], {}, None
+        for k, fr in enumerate(clip):
+            before = state
+            mesh.reset_counts()
+            t1 = time.time()
+            state, out = step(state, fr[0], fr[1])
+            sync()
+            ms = (time.time() - t1) * 1e3
+            coll = dict(mesh.counts)
+            recs.append({
+                "R": out.pose.R.cpu().numpy(), "t": out.pose.t.cpu().numpy(),
+                "nb_total": int(out.nb_total),
+                "icp_valid": bool(out.icp_valid),
+                "gate": bool(out.lc_gate), "accepted": bool(out.lc_accepted)
+                if out.lc_accepted is not None else False, "ms": ms,
+                "collectives": coll["collectives"], "bytes": coll["bytes"],
+                "coll_ms": coll["seconds"] * 1e3,
+                "agree": _agree(out, state, mesh)})
+            if keep_gate and out.lc_gate and not kept:
+                kept = {k: before, k - 1: prev}
+            prev = before
+        return state, step, recs, kept, init_s
+
+    cfg = lc_config()
+    clip = synthetic.revisit_frames(cfg.cam)
+    tps_cuda.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state, step, recs, kept, init_s = run(cfg, clip, True)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    launches = dict(tps_cuda.launch_counts)
+    waits = {}
+    for name, k in (("ordinary", min(kept) if kept else None),
+                    ("closure", max(kept) if kept else None)):
+        if k is not None and cuda:
+            w = host_syncs(lambda: step(kept[k], clip[k][0], clip[k][1]))
+            waits[name] = sum(c for _, c in w)
+            waits[name + "_where"] = w
+    # the replays above are not counted: the MOD frames' launches are
+    mcfg = mod_config()
+    mclip = synthetic.dynamic_frames(mcfg.cam, n_mod_frames)
+    tps_cuda.reset_launch_counts()
+    _, _, mrecs, _, _ = run(mcfg, mclip, False)
+    for k, v in tps_cuda.launch_counts.items():
+        launches[k] += v
+    return {"lc": recs, "mod": mrecs, "keyframes": int(state.kf_store.db
+                                                       .count),
+            "nb_local": int(state.model.nb_local), "peak": peak,
+            "init_s": init_s, "waits": waits, "launches": launches,
+            "backend": mesh.backend}
+
+
+def sharded_phase(d: int, backend: str, single_traj):
+    """The sharded frame step on `d` ranks over `backend`, each rank its
+    own process on the card, on the loop-closure phase's clip and limits;
+    its poses against the single-device phase's of the same call."""
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.eval.trajectory import quat_to_mat_np
+    from supersurfel_fusion_tpu_torch.parallel.distributed import launch
+
+    t0 = time.time()
+    ranks = launch(_sharded_rank, d, backend, "cuda",
+                   args=(SHARD_MOD_FRAMES,), threads=0, timeout_s=BUDGET_S)
+    log(f"  {d} rank(s) over {backend}: {time.time() - t0:.1f} s (spawn, "
+        f"start-up and both clips)")
+    r0 = ranks[0]
+    recs = r0["lc"]
+    n = len(recs)
+    traj = np.array([np.concatenate([r["t"], r["R"].reshape(-1)])
+                     for r in recs])
+    err = synthetic.translation_errors(
+        np.array([r["t"] for r in recs]), synthetic.revisit_trajectory())
+    gates = [k for k, r in enumerate(recs) if r["gate"]]
+    accepted = [k for k, r in enumerate(recs) if r["accepted"]]
+    icp = np.mean([r["icp_valid"] for r in recs[1:]])
+    agree = all(r["agree"] for rk in ranks for r in rk["lc"] + rk["mod"])
+    dt = np.linalg.norm(traj[:, :3] - single_traj[:, :3], axis=1)
+    # the single-device phase's rows are TUM rows (t, quaternion)
+    dR = np.array([np.linalg.norm(r["R"] - quat_to_mat_np(row[3:7]))
+                   for r, row in zip(recs, single_traj)])
+    ordinary = [r["ms"] for k, r in enumerate(recs)
+                if k >= 2 and k not in gates]
+    coll_o = [r["collectives"] for k, r in enumerate(recs)
+              if k >= 1 and k not in gates]
+    bytes_o = [r["bytes"] for k, r in enumerate(recs)
+               if k >= 1 and k not in gates]
+    coll_ms = [r["coll_ms"] for k, r in enumerate(recs)
+               if k >= 2 and k not in gates]
+    kc = accepted[0] if accepted else None
+    log(f"  keyframes {r0['keyframes']}, gate fired on {gates}, accepted on "
+        f"{accepted}; max error {err.max():.4f} m" + (
+            f", at the closure {err[kc]:.4f} m" if kc is not None else "")
+        + f"; ICP valid {icp:.3f}; local counts "
+        f"{[rk['nb_local'] for rk in ranks]}, total {recs[-1]['nb_total']}")
+    log(f"  vs the single-device step: max |dt| {dt.max():.4f} m, max "
+        f"|dR|_F {dR.max():.4f}")
+    log(f"  ms/frame: ordinary median {np.median(ordinary):.2f} mean "
+        f"{np.mean(ordinary):.2f}; closure frame "
+        + (f"{recs[kc]['ms']:.2f}" if kc is not None else "none")
+        + f"; start-up {r0['init_s']:.2f} s; per rank peak memory "
+        f"{[round(rk['peak'] / 2**20, 1) for rk in ranks]} MiB")
+    log(f"  collectives per ordinary frame {sorted(set(coll_o))} "
+        f"({int(np.median(bytes_o))} B; host time in them median "
+        f"{np.median(coll_ms):.2f} ms, max {np.max(coll_ms):.2f} ms per "
+        f"frame); closure frame "
+        + (f"{recs[kc]['collectives']} ({recs[kc]['bytes']} B)"
+           if kc is not None else "none")
+        + f"; host waits (sync report, rank 0) {r0['waits']}")
+    log(f"  fr3 MOD, {SHARD_MOD_FRAMES} frames: ms "
+        f"{[round(r['ms'], 1) for r in r0['mod']]}, collectives "
+        f"{[r['collectives'] for r in r0['mod']]}, t "
+        f"{np.round(r0['mod'][-1]['t'], 4).tolist()}")
+    check(agree, f"the {d} rank(s) agree bit for bit on the pose and the "
+          "counts on every frame")
+    check(r0["keyframes"] >= LC_KEYFRAMES_MIN,
+          f"at least {LC_KEYFRAMES_MIN} keyframes")
+    check(kc == SHARD_CLOSURE_FRAME,
+          f"the closure accepted on frame {SHARD_CLOSURE_FRAME}")
+    check(bool(np.isfinite(traj).all())
+          and all(np.isfinite(r["t"]).all() for r in r0["mod"]),
+          "poses finite")
+    check(err[kc] < LC_CLOSURE_ERR_MAX,
+          f"error at the closure frame < {LC_CLOSURE_ERR_MAX} m")
+    check(err.max() < LC_DRIFT_MAX,
+          f"drift against the known trajectory < {LC_DRIFT_MAX} m")
+    check(icp >= LC_ICP_MIN,
+          f"ICP valid on >= {LC_ICP_MIN:.0%} of frames after the first")
+    check(dt.max() < SHARD_POSE_MAX and dR.max() < SHARD_ROT_MAX,
+          f"poses within {SHARD_POSE_MAX} m / {SHARD_ROT_MAX} of the "
+          "single-device step")
+    check(sum(rk["nb_local"] for rk in ranks) == recs[-1]["nb_total"],
+          "the ranks' local counts add up to the total")
+    launches = {k: sum(rk["launches"][k] for rk in ranks)
+                for k in r0["launches"]}
+    n_mod = SHARD_MOD_FRAMES
+    check(all(rk["launches"]["tps_iteration"] == 10 * (n + n_mod)
+              and rk["launches"]["tps_merge"] == 12 * (n + n_mod)
+              for rk in ranks),
+          "every rank: 10 tps_iteration and 12 tps_merge launches per frame")
+    return launches, {
+        "traj": traj, "keyframes": r0["keyframes"], "gates": gates,
+        "accepted": accepted, "ms_ordinary": float(np.median(ordinary)),
+        "ms_closure": recs[kc]["ms"], "max_err": float(err.max()),
+        "closure_err": float(err[kc]), "collectives": sorted(set(coll_o)),
+        "closure_collectives": recs[kc]["collectives"],
+        "peak_mib": [rk["peak"] / 2**20 for rk in ranks],
+        "waits": r0["waits"], "dt_single": float(dt.max()),
+        "coll_ms": float(np.median(coll_ms))}
+
+
 def main() -> int:
     try:
         import torch
@@ -1076,6 +1530,25 @@ def main() -> int:
     run_launches, loader = runner_phase(dev)
     phase_done("runner", t0)
 
+    t0 = time.time()
+    live_launches, live = live_phase(dev)
+    phase_done("live runner", t0)
+
+    t0 = time.time()
+    sh1_launches, sh1 = sharded_phase(1, "nccl", lc["traj"])
+    phase_done("sharded, 1 rank (NCCL)", t0)
+
+    t0 = time.time()
+    sh2_launches, sh2 = sharded_phase(2, "gloo", lc["traj"])
+    phase_done("sharded, 2 ranks on one card (gloo)", t0)
+    d12 = np.abs(sh1["traj"][:, :3] - sh2["traj"][:, :3]).max()
+    log(f"  D=2 vs D=1: keyframes {sh2['keyframes']} vs {sh1['keyframes']}, "
+        f"closure frame {sh2['accepted'][0]} vs {sh1['accepted'][0]}, max "
+        f"|dt| {d12:.2e} m")
+    check(sh2["keyframes"] == sh1["keyframes"]
+          and sh2["accepted"][0] == sh1["accepted"][0],
+          "D=2 stores the keyframes and accepts the closure as D=1")
+
     rows = []
     for name in ("tps_iteration", "tps_merge"):
         r = kern[name]
@@ -1086,7 +1559,9 @@ def main() -> int:
             # every pipeline phase: the default, MOD and loop-closure
             # frame steps and the runner's two runs
             "launches": (launches[name] + mod_launches[name]
-                         + lc_launches[name] + run_launches[name]),
+                         + lc_launches[name] + run_launches[name]
+                         + live_launches[name] + sh1_launches[name]
+                         + sh2_launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1096,7 +1571,11 @@ def main() -> int:
         f"ms/frame steady, peak {mod['peak_mib']:.1f} MiB; loop closure: "
         f"{lc['ms_ordinary']:.2f} ms/frame ordinary, closure frame "
         f"{lc['ms_closure']:.2f} ms, peak {lc['peak_mib']:.1f} MiB; runner "
-        f"loader {loader}; total {time.time() - _T0:.1f} s")
+        f"loader {loader}; live {live['fps']:.2f} fps, latency median "
+        f"{live['lat_median_ms']:.0f} ms, backlog {live['backlog_max']}; "
+        f"sharded D=1 {sh1['ms_ordinary']:.2f} ms/frame (closure "
+        f"{sh1['ms_closure']:.2f}), D=2 {sh2['ms_ordinary']:.2f} (closure "
+        f"{sh2['ms_closure']:.2f}); total {time.time() - _T0:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

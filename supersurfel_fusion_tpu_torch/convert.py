@@ -9,6 +9,12 @@ numpy arrays (for example with `jax.tree.map(np.asarray, state)`), so both
 packages can start from the same state; `detector_from_numpy` builds the
 port's `PersonDetector` from the JAX parameter dict. Both read attributes
 and keys by name and import nothing of JAX.
+
+`sharded_state_from_jax_numpy` gives rank r of D its block of a JAX
+`ShardedSLAMState` as `jax.device_get` returns it: rows [r C/D, (r+1) C/D)
+of the model and rows [r K/D, (r+1) K/D) of the keyframe store, which
+the JAX package holds block-wise in its local-row layout (local row i of
+rank r is global keyframe i D + r).
 """
 
 from __future__ import annotations
@@ -137,3 +143,57 @@ def state_to_numpy(state: SLAMState) -> dict:
     out["dropped_total"] = state.dropped_total.cpu().numpy()
     out["traj"] = state.traj.cpu().numpy()
     return out
+
+
+def sharded_state_from_jax_numpy(state, rank: int, n_ranks: int,
+                                 device: str | torch.device = "cuda",
+                                 detector: PersonDetector | None = None):
+    """Rank `rank` of `n_ranks`'s `ShardedSLAMState` (parallel/
+    pipeline_sharded.py) from a JAX `ShardedSLAMState` with numpy leaves,
+    with `detector` as its person detector."""
+    from supersurfel_fusion_tpu_torch.parallel.pipeline_sharded import (
+        ShardedSLAMState,
+    )
+    from supersurfel_fusion_tpu_torch.parallel.sharding import (
+        DistributedModel,
+    )
+
+    dev = resolve_device(device)
+    i32 = torch.int32
+
+    def rows(a):
+        a = np.asarray(a)
+        per = a.shape[0] // n_ranks
+        return a[rank * per:(rank + 1) * per]
+
+    s = state.model.surfels
+    surfels = Supersurfels(*(_t(rows(getattr(s, f)), dev)
+                             for f in _SURFEL_FIELDS))
+    ks = state.kf_store
+    db = ks.db
+    local_store = SimpleNamespace(
+        db=SimpleNamespace(codes=rows(db.codes), poses_R=rows(db.poses_R),
+                           poses_t=rows(db.poses_t), stamps=rows(db.stamps),
+                           count=db.count),
+        **{f: rows(getattr(ks, f)) for f in KeyframeStore._fields[1:]})
+    lm = state.local_map
+    mp = state.mod_prev
+    nb_vis = np.asarray(state.model.nb_visible_local)
+    return ShardedSLAMState(
+        model=DistributedModel(
+            surfels, _t(np.asarray(state.model.nb_local)[rank], dev, i32),
+            _t(nb_vis[rank], dev, i32)),
+        kf_store=keyframe_store_from_numpy(local_store, dev),
+        pose=Pose(_t(state.pose.R, dev, torch.float32),
+                  _t(state.pose.t, dev, torch.float32)),
+        stamp=_t(state.stamp, dev, i32),
+        local_map=LocalMap(_t(lm.positions, dev), _t(lm.desc, dev),
+                           _t(lm.counters, dev, i32),
+                           _t(lm.valid, dev, torch.bool)),
+        mod_prev=MODPrev(*(_t(getattr(mp, f), dev) for f in MODPrev._fields)),
+        prev_fern_id=_t(state.prev_fern_id, dev, i32),
+        last_lc_stamp=_t(state.last_lc_stamp, dev, i32),
+        lc_count=_t(state.lc_count, dev, i32),
+        nb_visible_total=_t(nb_vis.sum(), dev, i32),
+        detector=None if detector is None else detector.to(dev),
+    )

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from supersurfel_fusion_tpu_torch.device import resolve_device
+
 Tensor = torch.Tensor
 
 # (out_channels, stride) per stage; the input is grey + depth (2 channels)
@@ -133,6 +135,8 @@ def load_params(path: str | Path) -> dict:
 
 
 def load_detector(path: str | Path,
-                  device: str | torch.device = "cpu") -> PersonDetector:
-    """`PersonDetector` with the weights of the `.npz` at `path`."""
-    return PersonDetector.from_params(load_params(path)).to(device)
+                  device: str | torch.device = "cuda") -> PersonDetector:
+    """`PersonDetector` with the weights of the `.npz` at `path`, on the
+    card unless `device` asks for the CPU (`device.resolve_device`)."""
+    return PersonDetector.from_params(load_params(path)).to(
+        resolve_device(device))

@@ -16,7 +16,9 @@ solve, both in f64 (the JAX package's are f32, whose rounding is as
 large as the damping). A failed factorisation gives a non-finite step,
 which is dropped, as in the JAX package; nothing waits on the host.
 
-The sharded node sampling (`build_graph_sharded`) is not ported here.
+Over a capacity-sharded model (`parallel/`), `build_graph_sharded` samples
+the nodes on every rank and gathers them, so the graph is the same on all
+ranks; `parallel/ba.py` shards the solve's constraints.
 """
 
 from __future__ import annotations
@@ -73,22 +75,24 @@ def _temporal_neighbours(n: Tensor) -> Tensor:
     return torch.minimum(nb, torch.clamp(n - 1, min=0))
 
 
-def build_graph(positions: Tensor, stamps: Tensor,
-                nb_live: Tensor) -> DeformationGraph:
-    """Sample up to NODE_CAP nodes uniformly over the live prefix of the
-    model, ordered by birth stamp, with temporal neighbours (the JAX
-    function's `valid` argument, which it does not read, is left out)."""
-    dev = positions.device
+def _sample(positions: Tensor, stamps: Tensor, nb_live: Tensor,
+            per: int, n: Tensor):
+    """`per` nodes strided over the live prefix [0, nb_live); those past
+    the first `n` get the sentinel stamp. Returns (positions, stamps)."""
     C = positions.shape[0]
-    live = torch.clamp(nb_live.to(torch.int64), min=1)
-    n = torch.clamp(live, max=NODE_CAP)
-    k = torch.arange(NODE_CAP, device=dev)
-    idx = torch.clamp((k * live) // NODE_CAP, 0, C - 1)
+    k = torch.arange(per, device=positions.device)
+    idx = torch.clamp((k * torch.clamp(nb_live.to(torch.int64), min=1))
+                      // per, 0, C - 1)
     st = torch.where(k < n, stamps[idx].to(torch.int32),
                      torch.full_like(k, STAMP_SENTINEL, dtype=torch.int32))
+    return positions[idx], st
+
+
+def _finish_graph(pos: Tensor, st: Tensor, n: Tensor) -> DeformationGraph:
+    dev = pos.device
     order = torch.argsort(st, stable=True)
     return DeformationGraph(
-        positions=positions[idx][order],
+        positions=pos[order],
         rotations=torch.eye(3, dtype=torch.float32,
                             device=dev).repeat(NODE_CAP, 1, 1),
         translations=torch.zeros((NODE_CAP, 3), dtype=torch.float32,
@@ -97,6 +101,36 @@ def build_graph(positions: Tensor, stamps: Tensor,
         neighbours=_temporal_neighbours(n),
         n_nodes=n.to(torch.int32),
     )
+
+
+def build_graph(positions: Tensor, stamps: Tensor,
+                nb_live: Tensor) -> DeformationGraph:
+    """Sample up to NODE_CAP nodes uniformly over the live prefix of the
+    model, ordered by birth stamp, with temporal neighbours (the JAX
+    function's `valid` argument, which it does not read, is left out)."""
+    n = torch.clamp(torch.clamp(nb_live.to(torch.int64), min=1),
+                    max=NODE_CAP)
+    pos, st = _sample(positions, stamps, nb_live, NODE_CAP, n)
+    return _finish_graph(pos, st, n)
+
+
+def build_graph_sharded(positions: Tensor, stamps: Tensor,
+                        nb_live_local: Tensor, mesh) -> DeformationGraph:
+    """Node sampling over a capacity-sharded model: each rank strides
+    NODE_CAP / D candidates over its local live prefix, one gather of the
+    (NODE_CAP / D, 3) positions and one of the stamps make the graph the
+    same on every rank, and a sum gives the node count. Everything after
+    it (bindings, the solve) runs replicated; applying the deformation
+    stays local to each rank's block."""
+    from supersurfel_fusion_tpu_torch.parallel.mesh import all_gather, psum
+
+    per = NODE_CAP // mesh.axis_size
+    n_loc = torch.clamp(nb_live_local.to(torch.int64), max=per)
+    pos_l, st_l = _sample(positions, stamps, nb_live_local, per, n_loc)
+    pos = all_gather(pos_l, mesh).reshape(NODE_CAP, 3)
+    st = all_gather(st_l, mesh).reshape(NODE_CAP)
+    n = torch.clamp(psum(n_loc.to(torch.int32).reshape(1), mesh)[0], min=1)
+    return _finish_graph(pos, st, n.to(torch.int64))
 
 
 def _norm3(v: Tensor) -> Tensor:
@@ -188,17 +222,33 @@ def _residuals(rot: Tensor, trans: Tensor, graph: DeformationGraph,
 
 def optimise(graph: DeformationGraph, con_binding: VertexBinding,
              con_src: Tensor, con_tgt: Tensor, con_valid: Tensor,
-             n_iters: int = 3, damping: float = 1e-4):
+             n_iters: int = 3, damping: float = 1e-4, mesh=None):
     """Dense Gauss-Newton over (rotations, translations); a step is kept
     only where it does not raise the squared residual.
 
+    `mesh` (`parallel/ba.py`): the con_* arrays are this rank's shard of
+    the constraints and the graph is replicated. The node-local residuals
+    are scaled by 1/sqrt(D), so the sums over the ranks of JtJ and Jtr
+    (in f64) count them once, and every rank takes the same step.
+
     Returns (rotations, translations, error, mean_cons_err)."""
+    from supersurfel_fusion_tpu_torch.parallel.mesh import psum_packed
+
+    def total(*xs):
+        return xs if mesh is None else psum_packed(xs, mesh)
+
     nrot = NODE_CAP * 9
+    # the rot and reg residuals: the same on every rank
+    n_reg = NODE_CAP * 6 + NODE_CAP * N_NEIGH * 3
+    local_scale = 1.0 if mesh is None else mesh.axis_size ** -0.5
 
     def flat_residual(x: Tensor) -> Tensor:
-        return _residuals(x[:nrot].reshape(NODE_CAP, 3, 3),
-                          x[nrot:].reshape(NODE_CAP, 3), graph, con_binding,
-                          con_src, con_tgt, con_valid)
+        r = _residuals(x[:nrot].reshape(NODE_CAP, 3, 3),
+                       x[nrot:].reshape(NODE_CAP, 3), graph, con_binding,
+                       con_src, con_tgt, con_valid)
+        if mesh is None:
+            return r
+        return torch.cat([r[:n_reg] * local_scale, r[n_reg:]])
 
     x = torch.cat([graph.rotations.reshape(-1),
                    graph.translations.reshape(-1)])
@@ -210,23 +260,24 @@ def optimise(graph: DeformationGraph, con_binding: VertexBinding,
         # the damping, and the step of the nodes far in time from both
         # constraint sets is rounding noise (PERF.md, section 6)
         J = jac(x).to(torch.float64)
-        L, _ = torch.linalg.cholesky_ex(J.T @ J + damping * eye)
-        dx = torch.cholesky_solve(-(J.T @ r.to(torch.float64))[:, None],
-                                  L)[:, 0].to(torch.float32)
+        JtJ, Jtr = total(J.T @ J, J.T @ r.to(torch.float64))
+        L, _ = torch.linalg.cholesky_ex(JtJ + damping * eye)
+        dx = torch.cholesky_solve(-Jtr[:, None], L)[:, 0].to(torch.float32)
         dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
         x2 = x + dx
-        improved = torch.sum(flat_residual(x2) ** 2) <= torch.sum(r ** 2)
-        x = torch.where(improved, x2, x)
+        c_new, c_old = total(torch.sum(flat_residual(x2) ** 2),
+                             torch.sum(r ** 2))
+        x = torch.where(c_new <= c_old, x2, x)
     rot = x[:nrot].reshape(NODE_CAP, 3, 3)
     trans = x[nrot:].reshape(NODE_CAP, 3)
-    error = torch.sum(flat_residual(x) ** 2)
 
     pred = blend_positions(graph.positions, rot, trans, con_binding, con_src)
     cerr = _norm3(pred - con_tgt)
-    n_con = torch.clamp(torch.sum(con_valid.to(torch.float32)), min=1.0)
-    mean_cons_err = torch.sum(torch.where(con_valid, cerr,
-                                          torch.zeros_like(cerr))) / n_con
-    return rot, trans, error, mean_cons_err
+    error, n_con, sum_cerr = total(
+        torch.sum(flat_residual(x) ** 2),
+        torch.sum(con_valid.to(torch.float32)),
+        torch.sum(torch.where(con_valid, cerr, torch.zeros_like(cerr))))
+    return rot, trans, error, sum_cerr / torch.clamp(n_con, min=1.0)
 
 
 def warm_up(device: str | torch.device) -> None:

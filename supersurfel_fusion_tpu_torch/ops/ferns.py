@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from supersurfel_fusion_tpu_torch.config import FernsConfig
+from supersurfel_fusion_tpu_torch.device import resolve_device
 from supersurfel_fusion_tpu_torch.ops.features import resize_bilinear
 
 Tensor = torch.Tensor
@@ -50,10 +51,11 @@ def _table_on(cfg: FernsConfig, width: int, height: int, max_depth: float,
 
 def make_fern_table(cfg: FernsConfig, width: int, height: int,
                     max_depth: float = 5.0,
-                    device: str | torch.device = "cpu"):
-    """`fern_table_np` as tensors on `device` (made once per device)."""
+                    device: str | torch.device = "cuda"):
+    """`fern_table_np` as tensors on `device` (made once per device; the
+    card unless `device` asks for the CPU, `device.resolve_device`)."""
     return _table_on(cfg, width, height, float(max_depth),
-                     torch.device(device))
+                     resolve_device(device))
 
 
 class FernDB(NamedTuple):

@@ -22,6 +22,7 @@ import torch
 
 from supersurfel_fusion_tpu_torch.config import CameraIntrinsics, ICPConfig
 from supersurfel_fusion_tpu_torch.ops.tps import _iota, _rel_code, lookup_cells
+from supersurfel_fusion_tpu_torch.parallel.mesh import psum_packed
 from supersurfel_fusion_tpu_torch.types import Supersurfels
 from supersurfel_fusion_tpu_torch.utils.camera import backproject
 from supersurfel_fusion_tpu_torch.utils.color import rgb_to_lab
@@ -154,10 +155,17 @@ def _apply_solution(Xp: Tensor):
 
 def symmetric_icp(model: Supersurfels, nb_visible: Tensor,
                   target_maps: Tensor, R_view: Tensor, t_view: Tensor,
-                  cam: CameraIntrinsics, cfg: ICPConfig) -> ICPResult:
+                  cam: CameraIntrinsics, cfg: ICPConfig,
+                  mesh=None) -> ICPResult:
     """Frame-to-model refinement. `model` is in world frame; (R_view,
     t_view) is the current world->camera estimate. Returns the relative
-    camera-frame correction (R_rel, t_rel)."""
+    camera-frame correction (R_rel, t_rel).
+
+    `mesh` (`parallel/mesh.py`): `model` is this rank's block of the
+    capacity-sharded model and `nb_visible` its local visible count; each
+    iteration sums the normal equations (JtJ, Jtr, r, inliers) over the
+    ranks in one collective, so every rank takes the same step. Without
+    it nothing changes."""
     dev = model.positions.device
     N = model.capacity
     ids = torch.arange(N, dtype=torch.int32, device=dev)
@@ -181,6 +189,8 @@ def symmetric_icp(model: Supersurfels, nb_visible: Tensor,
         JtJ, Jtr, r, inl = _build_system(
             model.positions, src_normal, src_lab, src_mask, target_maps,
             R_c, t_c, cam, cfg)
+        if mesh is not None:
+            JtJ, Jtr, r, inl = psum_packed((JtJ, Jtr, r, inl), mesh)
         err = torch.sqrt(r / torch.clamp(inl, min=1.0))
         enough = inl >= cfg.min_inliers
         Xp, _, _ = _precond_solve(JtJ, Jtr, abs_damping=cfg.solve_damping)

@@ -13,8 +13,8 @@ Port of `supersurfel_fusion_tpu/ops/loop_closure.py` (the reference's
 camera's rigid motion from matched keypoints. Everything is fixed-shape
 and reads nothing on the host; the frame step decides on the host whether
 to run `close_global_loop` at all (one wait per frame, `pipeline.py`).
-The sharded variants (a sharded keyframe store, distributed node
-sampling) are not ported here.
+Over a sharded model and keyframe store (`parallel/`), the same function
+samples the graph's nodes on every rank and deforms each rank's block.
 
 The SVD is `torch.linalg.svd`. R = V S U^T does not change when a
 singular pair changes sign, so nondegenerate hypotheses agree with the
@@ -213,27 +213,47 @@ def close_global_loop(store: KeyframeStore, best_id: Tensor,
                       frame: Supersurfels, kp: Keypoints, kp_p3d: Tensor,
                       kp_depth_ok: Tensor, target_maps: Tensor, pose: Pose,
                       stamp: Tensor, cam: CameraIntrinsics,
-                      icp_cfg: ICPConfig) -> LoopClosureResult:
-    """The whole loop-closure branch against keyframe `best_id`."""
+                      icp_cfg: ICPConfig, mesh=None, payload=None,
+                      kf_gids: Tensor | None = None) -> LoopClosureResult:
+    """The whole loop-closure branch against keyframe `best_id`.
+
+    Sharded (`parallel/`): with `mesh`, `model` is this rank's block of
+    the capacity-sharded model and `nb_supersurfels` its local live
+    count; the graph's nodes are sampled on every rank and gathered
+    (`deformation.build_graph_sharded`), matching, RANSAC, ICP and the
+    graph solve run replicated, and the deformation is applied to this
+    rank's block. With a sharded keyframe store, `store` holds this
+    rank's rows, `payload` is the best keyframe's payload broadcast from
+    its owner (`kf_sharded.get_payload_sharded`), and `kf_gids` the
+    global id of each local row, which masks the pose-graph update."""
     dev = pose.t.device
     f32 = dict(dtype=torch.float32, device=dev)
     F = frame.capacity
     eye = torch.eye(3, **f32)
-    kf_pose = Pose(take_row(store.db.poses_R, best_id),
-                   take_row(store.db.poses_t, best_id))
-    kf_stamp = take_row(store.db.stamps, best_id)
+    if payload is None:
+        def kf(field):
+            return take_row(getattr(store, field), best_id)
+
+        kf_pose = Pose(take_row(store.db.poses_R, best_id),
+                       take_row(store.db.poses_t, best_id))
+        kf_stamp = take_row(store.db.stamps, best_id)
+    else:
+        def kf(field):
+            return getattr(payload, field)
+
+        kf_pose = Pose(payload.pose_R, payload.pose_t)
+        kf_stamp = payload.stamp
 
     # 1. keyframe -> current matching
-    midx, _, mok = match_bruteforce(take_row(store.kp_desc, best_id),
-                                    take_row(store.kp_valid, best_id),
+    midx, _, mok = match_bruteforce(kf("kp_desc"), kf("kp_valid"),
                                     kp.desc, kp.valid & kp_depth_ok)
     midx = midx.to(torch.int64)
-    inl = gms_filter(take_row(store.kp_xy, best_id), kp.xy[midx], mok,
+    inl = gms_filter(kf("kp_xy"), kp.xy[midx], mok,
                      float(cam.width), float(cam.height))
 
     # 2. 3D-3D RANSAC: keyframe-camera points -> current-camera points
-    R_init, t_init, sparse_ok, _ = ransac_rigid_3d(
-        take_row(store.kp_p3d, best_id), kp_p3d[midx], inl)
+    R_init, t_init, sparse_ok, _ = ransac_rigid_3d(kf("kp_p3d"),
+                                                   kp_p3d[midx], inl)
     R_init = torch.where(sparse_ok, R_init, eye)
     t_init = torch.where(sparse_ok, t_init, torch.zeros(3, **f32))
 
@@ -241,12 +261,12 @@ def close_global_loop(store: KeyframeStore, best_id: Tensor,
     # current frame; the alignment has no covariance gate
     empty = Supersurfels.empty(F, dev)
     orient = empty.orientations.clone()
-    orient[:, 2, :] = take_row(store.sf_normal, best_id)
+    orient[:, 2, :] = kf("sf_normal")
     kf_sf = empty._replace(
-        positions=take_row(store.sf_pos, best_id),
-        colors=take_row(store.sf_color, best_id),
+        positions=kf("sf_pos"),
+        colors=kf("sf_color"),
         orientations=orient,
-        confidences=torch.where(take_row(store.sf_valid, best_id),
+        confidences=torch.where(kf("sf_valid"),
                                 torch.ones(F, **f32),
                                 torch.full((F,), -1.0, **f32)))
     align_cfg = ICPConfig(
@@ -285,8 +305,12 @@ def close_global_loop(store: KeyframeStore, best_id: Tensor,
         kf_stamp.to(torch.int32).expand(n_sel)])
 
     # 6. deformation graph over the live model
-    graph = defo.build_graph(model.positions, model.stamps[:, 0],
-                             nb_supersurfels)
+    if mesh is None:
+        graph = defo.build_graph(model.positions, model.stamps[:, 0],
+                                 nb_supersurfels)
+    else:
+        graph = defo.build_graph_sharded(model.positions, model.stamps[:, 0],
+                                         nb_supersurfels, mesh)
     con_bind = defo.bind_vertices(graph, con_src, con_stamp, con_valid)
     rot, trans, error, mean_cerr = defo.optimise(graph, con_bind, con_src,
                                                  con_tgt, con_valid)
@@ -301,9 +325,12 @@ def close_global_loop(store: KeyframeStore, best_id: Tensor,
     deformed = defo.apply_to_model(model, graph.positions, rot, trans, vbind,
                                    live & accepted)
 
-    # keyframe poses (applyGraphToPoses, look_back=10)
+    # keyframe poses (applyGraphToPoses, look_back=10); the rows of a
+    # sharded store are local, and kf_gids gives their global ids
     db = store.db
-    kf_live = torch.arange(db.poses_t.shape[0], device=dev) < db.count
+    if kf_gids is None:
+        kf_gids = torch.arange(db.poses_t.shape[0], device=dev)
+    kf_live = kf_gids < db.count
     kf_bind = defo.bind_vertices(graph, db.poses_t, db.stamps, kf_live,
                                  look_back=10)
     g = graph.positions[kf_bind.nodes]

@@ -36,6 +36,7 @@ from supersurfel_fusion_tpu_torch.config import (
     MODConfig,
     TPSConfig,
 )
+from supersurfel_fusion_tpu_torch.device import resolve_device
 from supersurfel_fusion_tpu_torch.ops.features import Keypoints
 from supersurfel_fusion_tpu_torch.ops.flow import (
     dense_flow,
@@ -74,7 +75,10 @@ class MODPrev(NamedTuple):
 
 
 def init_prev(h: int, w: int, k: int, cell_size: int = 16,
-              device: str | torch.device = "cpu") -> MODPrev:
+              device: str | torch.device = "cuda") -> MODPrev:
+    """The empty MOD context, on the card unless `device` asks for the CPU
+    (`device.resolve_device`)."""
+    device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     return MODPrev(
         gray=torch.zeros((h, w), **f32),

@@ -56,6 +56,7 @@ from supersurfel_fusion_tpu_torch.ops.depth import (
     depth_to_disp,
 )
 from supersurfel_fusion_tpu_torch.ops.features import (
+    Keypoints,
     detect_and_describe,
     keypoint_capacity,
 )
@@ -278,6 +279,117 @@ def front_end(rgb: Tensor, depth: Tensor, cfg: PipelineConfig,
     return FrontEnd(fdepth, tps, plane_depth, frame)
 
 
+def frame_inputs(rgb, depth, cfg: PipelineConfig, dev: torch.device):
+    """rgb (H, W, 3) and depth (H, W) as float32 tensors on `dev`, depth
+    in metres: uint8/float rgb, raw uint16 depth counts (scaled by
+    cfg.depth_scale) or float32 metres, as numpy arrays or tensors.
+    Integer inputs are converted on the device."""
+    rgb = _upload(rgb, dev)
+    depth = _upload(depth, dev)
+    if rgb.dtype != torch.float32:
+        rgb = rgb.to(torch.float32)
+    if depth.dtype in (torch.uint16, torch.int32):
+        depth = depth.to(torch.float32) * cfg.depth_scale
+    elif depth.dtype != torch.float32:
+        depth = depth.to(torch.float32)
+    return rgb, depth
+
+
+class MotionVO(NamedTuple):
+    frame: Supersurfels            # dynamic superpixels' confidence -1
+    kp: Optional[Keypoints]        # keypoints (static ones valid), or None
+    matches: Optional[vo_ops.VOMatches]  # VO matches, or None without VO
+    local_map: vo_ops.LocalMap
+    mod_prev: motion_ops.MODPrev
+    pose: Pose                     # the VO pose
+    vo_valid: Tensor
+    vo_matches: Tensor
+    is_static_sp: Tensor           # (N_sp,) bool
+
+
+def motion_and_vo(rgb: Tensor, fe: FrontEnd, pose: Pose,
+                  lmap: vo_ops.LocalMap, mod_prev: motion_ops.MODPrev,
+                  detector: Optional[PersonDetector], cfg: PipelineConfig,
+                  agree=None) -> MotionVO:
+    """Steps 7-8 of the frame step: moving-object detection and sparse
+    feature VO. `agree`, if given, maps MOD's (is_static_sp, static_kp)
+    to the values every rank of a sharded step uses."""
+    dev = rgb.device
+    cam = cfg.cam
+    frame = fe.frame
+    is_static_sp = torch.ones((cfg.nb_superpixels,), dtype=torch.bool,
+                              device=dev)
+    if not cfg.enable_sparse_vo:
+        return MotionVO(frame, None, None, lmap, mod_prev, pose,
+                        torch.zeros((), dtype=torch.bool, device=dev),
+                        torch.zeros((), dtype=torch.int32, device=dev),
+                        is_static_sp)
+    with record_function("ssf.features"):
+        gray = rgb_to_gray(rgb)
+        kp = detect_and_describe(gray, cfg.vo)
+    if cfg.mod.enabled:
+        with record_function("ssf.mod"):
+            # MOD reads the bilateral-filtered depth (keypoint 3D and the
+            # SE(3) depth residual need metric depth at corners)
+            is_static_sp, static_kp, mod_prev = motion_ops.detect_motion(
+                gray, fe.fdepth, mod_prev, kp, frame, fe.tps, cam, cfg.tps,
+                cfg.mod, detector=detector)
+            if agree is not None:
+                is_static_sp, static_kp = agree(is_static_sp, static_kp)
+                mod_prev = mod_prev._replace(kp_valid=static_kp)
+            # dynamic superpixels are kept out of fusion, ICP and VO
+            frame = frame._replace(confidences=torch.where(
+                is_static_sp, frame.confidences,
+                torch.full_like(frame.confidences, -1.0)))
+            kp = kp._replace(valid=static_kp)
+    with record_function("ssf.vo"):
+        matches, lmap = vo_ops.find_matches(lmap, kp, pose.R, pose.t, cam,
+                                            cfg.vo)
+        R_vo, t_vo, pnp_ok, _ = vo_ops.pnp_solve(
+            pose.R, pose.t, matches.map_pos, matches.kp_xy, matches.ok, cam,
+            cfg.vo)
+    vo_valid = pnp_ok & (matches.n >= cfg.vo.min_matches)
+    pose = Pose(torch.where(vo_valid, R_vo, pose.R),
+                torch.where(vo_valid, t_vo, pose.t))
+    return MotionVO(frame, kp, matches, lmap, mod_prev, pose, vo_valid,
+                    matches.n, is_static_sp)
+
+
+def fern_codes(rgb: Tensor, fdepth: Tensor, cfg: PipelineConfig) -> Tensor:
+    """The frame's (n_ferns,) fern codes."""
+    cam = cfg.cam
+    table = ferns_ops.make_fern_table(cfg.ferns, cam.width, cam.height,
+                                      cfg.fusion.range_max, rgb.device)
+    return ferns_ops.compute_codes(rgb, fdepth, *table,
+                                   cfg.ferns.pyramid_level)
+
+
+def reset_map_if(accepted: Tensor, kp, fdepth: Tensor, pose: Pose,
+                 lmap: vo_ops.LocalMap,
+                 cfg: PipelineConfig) -> vo_ops.LocalMap:
+    """An accepted closure resets the VO local map at the corrected pose
+    (a masked device update)."""
+    reset_map = vo_ops.reset_local_map(kp, fdepth, pose.R, pose.t, cfg.cam,
+                                       cfg.vo.local_map_capacity)
+    return vo_ops.LocalMap(*(
+        torch.where(accepted.reshape((1,) * a.ndim), a, b)
+        for a, b in zip(reset_map, lmap)))
+
+
+def update_local_map(mv: MotionVO, fdepth: Tensor, labels: Tensor,
+                     pose: Pose, lmap: vo_ops.LocalMap,
+                     cfg: PipelineConfig) -> vo_ops.LocalMap:
+    """Step 12: local-map maintenance with the final fused pose."""
+    if not cfg.enable_sparse_vo:
+        return lmap
+    with record_function("ssf.local_map"):
+        mod_args = dict(labels=labels, static_sp=mv.is_static_sp) \
+            if cfg.mod.enabled else {}
+        return vo_ops.update_local_map(lmap, mv.kp, fdepth, mv.matches,
+                                       pose.R, pose.t, cfg.cam, cfg.vo,
+                                       **mod_args)
+
+
 def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     """One SLAM step on the state's device.
 
@@ -287,53 +399,18 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     Returns (new_state, outputs)."""
     check_supported(cfg)
     dev = state.stamp.device
-    rgb = _upload(rgb, dev)
-    depth = _upload(depth, dev)
-    if rgb.dtype != torch.float32:
-        rgb = rgb.to(torch.float32)
-    if depth.dtype in (torch.uint16, torch.int32):
-        depth = depth.to(torch.float32) * cfg.depth_scale
-    elif depth.dtype != torch.float32:
-        depth = depth.to(torch.float32)
+    rgb, depth = frame_inputs(rgb, depth, cfg, dev)
 
     cam = cfg.cam
-    fdepth, tps, plane_depth, frame = front_end(rgb, depth, cfg, state.stamp)
+    fe = front_end(rgb, depth, cfg, state.stamp)
+    fdepth, tps, plane_depth = fe.fdepth, fe.tps, fe.plane_depth
 
     # 7-8. moving-object detection + sparse feature VO
-    pose = state.pose
-    lmap = state.local_map
-    mod_prev = state.mod_prev
-    is_static_sp = torch.ones((cfg.nb_superpixels,), dtype=torch.bool,
-                              device=dev)
-    if cfg.enable_sparse_vo:
-        with record_function("ssf.features"):
-            gray = rgb_to_gray(rgb)
-            kp = detect_and_describe(gray, cfg.vo)
-        if cfg.mod.enabled:
-            with record_function("ssf.mod"):
-                # MOD reads the bilateral-filtered depth (keypoint 3D and
-                # the SE(3) depth residual need metric depth at corners)
-                is_static_sp, static_kp, mod_prev = motion_ops.detect_motion(
-                    gray, fdepth, mod_prev, kp, frame, tps, cam, cfg.tps,
-                    cfg.mod, detector=state.detector)
-                # dynamic superpixels are kept out of fusion, ICP and VO
-                frame = frame._replace(confidences=torch.where(
-                    is_static_sp, frame.confidences,
-                    torch.full_like(frame.confidences, -1.0)))
-                kp = kp._replace(valid=static_kp)
-        with record_function("ssf.vo"):
-            matches, lmap = vo_ops.find_matches(lmap, kp, pose.R, pose.t,
-                                                cam, cfg.vo)
-            R_vo, t_vo, pnp_ok, _ = vo_ops.pnp_solve(
-                pose.R, pose.t, matches.map_pos, matches.kp_xy, matches.ok,
-                cam, cfg.vo)
-        vo_valid = pnp_ok & (matches.n >= cfg.vo.min_matches)
-        pose = Pose(torch.where(vo_valid, R_vo, pose.R),
-                    torch.where(vo_valid, t_vo, pose.t))
-        vo_matches = matches.n
-    else:
-        vo_valid = torch.zeros((), dtype=torch.bool, device=dev)
-        vo_matches = torch.zeros((), dtype=torch.int32, device=dev)
+    mv = motion_and_vo(rgb, fe, state.pose, state.local_map, state.mod_prev,
+                       state.detector, cfg)
+    frame, kp, pose, lmap = mv.frame, mv.kp, mv.pose, mv.local_map
+    mod_prev, is_static_sp = mv.mod_prev, mv.is_static_sp
+    vo_valid, vo_matches = mv.vo_valid, mv.vo_matches
 
     # 9. dense symmetric ICP refinement against the visible model
     with record_function("ssf.icp"):
@@ -351,11 +428,7 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
         and cfg.enable_sparse_vo
     if use_ferns:
         with record_function("ssf.ferns"):
-            table = ferns_ops.make_fern_table(cfg.ferns, cam.width,
-                                              cam.height,
-                                              cfg.fusion.range_max, dev)
-            codes = ferns_ops.compute_codes(rgb, fdepth, *table,
-                                            cfg.ferns.pyramid_level)
+            codes = fern_codes(rgb, fdepth, cfg)
             best_id, _, is_new = ferns_ops.query(kf_store.db, codes,
                                                  cfg.ferns.new_frame_thresh)
             kp_p3d, kp_depth_ok = keypoints_3d(kp, fdepth, cfg)
@@ -388,14 +461,7 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
                     poses_R=lc.kf_poses_R, poses_t=lc.kf_poses_t))
                 last_lc = torch.where(accepted, state.stamp, last_lc)
                 lc_count = lc_count + accepted.to(torch.int32)
-                # an accepted closure resets the VO local map at the
-                # corrected pose
-                reset_map = vo_ops.reset_local_map(
-                    kp, fdepth, pose.R, pose.t, cam,
-                    cfg.vo.local_map_capacity)
-                lmap = vo_ops.LocalMap(*(
-                    torch.where(accepted.reshape((1,) * a.ndim), a, b)
-                    for a, b in zip(reset_map, lmap)))
+                lmap = reset_map_if(accepted, kp, fdepth, pose, lmap, cfg)
         fern_out.update(lc_gate=fire, lc_accepted=accepted)
     if use_ferns:
         # a new keyframe takes the next id (ferns.cu: bestKeyFrameId =
@@ -403,12 +469,7 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
         prev_fern_id = torch.where(is_new, kf_store.db.count, best_id)
 
     # 12. local-map maintenance with the final fused pose
-    if cfg.enable_sparse_vo:
-        with record_function("ssf.local_map"):
-            mod_args = dict(labels=tps.labels, static_sp=is_static_sp) \
-                if cfg.mod.enabled else {}
-            lmap = vo_ops.update_local_map(lmap, kp, fdepth, matches, pose.R,
-                                           pose.t, cam, cfg.vo, **mod_args)
+    lmap = update_local_map(mv, fdepth, tps.labels, pose, lmap, cfg)
 
     # 13. model update / bootstrap
     with record_function("ssf.fusion"):

@@ -38,7 +38,7 @@ def _np(x):
 def test_fern_table_equals_jax(wh):
     cfg = tcfg.FernsConfig()
     jt = jferns.make_fern_table(jcfg.FernsConfig(), *wh, 5.0)
-    tt = tferns.make_fern_table(cfg, *wh, 5.0)
+    tt = tferns.make_fern_table(cfg, *wh, 5.0, "cpu")
     for a, b in zip(jt, tt):
         np.testing.assert_array_equal(b.numpy(), _np(a))
         assert b.numpy().dtype == _np(a).dtype
@@ -82,7 +82,7 @@ def test_compute_codes_equal_jax(scene):
                                                   cfg.cam.height)
     fc = tcfg.FernsConfig()
     jt = jferns.make_fern_table(jcfg.FernsConfig(), W, H, 5.0)
-    tt = tferns.make_fern_table(fc, W, H, 5.0)
+    tt = tferns.make_fern_table(fc, W, H, 5.0, "cpu")
     n_distinct = set()
     for rgb, d in frames:
         jc = _np(jferns.compute_codes(jnp.asarray(rgb), jnp.asarray(d), *jt,

@@ -239,7 +239,7 @@ def test_checkpoint_resume_equivalence(tmp_path):
         with pytest.raises(RuntimeError):
             texport.load_checkpoint(path)
     # the person detector travels as its weights
-    det_state = a.state._replace(detector=load_detector(WEIGHTS))
+    det_state = a.state._replace(detector=load_detector(WEIGHTS, "cpu"))
     p2 = texport.save_checkpoint(str(tmp_path / "det.pt"), det_state)
     back = texport.load_checkpoint(p2, device="cpu")
     for (ka, va), (kb, vb) in zip(det_state.detector.state_dict().items(),

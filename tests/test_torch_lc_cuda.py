@@ -48,7 +48,7 @@ def state_to(state, device):
 def test_fern_codes_card_equal_cpu(cuda):
     cfg = PipelineConfig()
     fc = FernsConfig()
-    cpu_t = ferns.make_fern_table(fc, 640, 480, 5.0)
+    cpu_t = ferns.make_fern_table(fc, 640, 480, 5.0, "cpu")
     card_t = ferns.make_fern_table(fc, 640, 480, 5.0, cuda)
     for rgb, depth, _ in synthetic.revisit_frames(cfg.cam)[::4]:
         r = torch.from_numpy(rgb).float()

@@ -38,7 +38,7 @@ def test_detector_card_matches_cpu(cuda):
     rgb, depth, _, _ = synthetic.dynamic_frames(cfg.cam, 4)[3]
     gray = rgb_to_gray(torch.from_numpy(rgb).float())
     d = torch.from_numpy(depth.astype(np.float32)) * cfg.depth_scale
-    cpu = load_detector(cfg.mod.weights_path)
+    cpu = load_detector(cfg.mod.weights_path, "cpu")
     card = load_detector(cfg.mod.weights_path, cuda)
     hc, _ = cpu.maps(gray, d)
     hg, _ = card.maps(gray.to(cuda), d.to(cuda))
@@ -60,7 +60,7 @@ def test_detect_motion_card_matches_cpu(cuda):
     keypoints and previous context go to both devices."""
     cfg = mod_config()
     clip = synthetic.dynamic_frames(cfg.cam, 6)
-    det_cpu = load_detector(cfg.mod.weights_path)
+    det_cpu = load_detector(cfg.mod.weights_path, "cpu")
     prev = None
     outs = {}
     for k in (4, 5):
@@ -71,7 +71,7 @@ def test_detect_motion_card_matches_cpu(cuda):
         gray = rgb_to_gray(rgb)
         kp = detect_and_describe(gray, cfg.vo)
         if k == 4:
-            prev = motion.init_prev(480, 640, kp.capacity)
+            prev = motion.init_prev(480, 640, kp.capacity, device="cpu")
             _, _, prev = motion.detect_motion(
                 gray, fe.fdepth, prev, kp, fe.frame, fe.tps, cfg.cam,
                 cfg.tps, cfg.mod, detector=det_cpu)

@@ -50,7 +50,7 @@ def _jax_heat(params, gray, depth):
 def test_detector_matches_jax(H, W):
     params = jpd.load_params(str(WEIGHTS))
     gray, depth = frame(H, W)
-    det = tpd.load_detector(WEIGHTS)
+    det = tpd.load_detector(WEIGHTS, "cpu")
     heat_t, _ = det.maps(torch.from_numpy(gray), torch.from_numpy(depth))
     heat_j = np.asarray(jax.jit(_jax_heat)(params, jnp.asarray(gray),
                                            jnp.asarray(depth)))
@@ -81,7 +81,7 @@ def test_detector_from_numpy_equals_loaded_weights():
     params = {k: np.asarray(v)
               for k, v in jpd.load_params(str(WEIGHTS)).items()}
     a = convert.detector_from_numpy(params)
-    b = tpd.load_detector(WEIGHTS)
+    b = tpd.load_detector(WEIGHTS, "cpu")
     for (na, pa), (nb, pb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert na == nb
@@ -99,4 +99,4 @@ def test_same_padding_matches_xla():
 
 def test_missing_weights_raise():
     with pytest.raises(FileNotFoundError):
-        tpd.load_detector(WEIGHTS.with_name("absent.npz"))
+        tpd.load_detector(WEIGHTS.with_name("absent.npz"), "cpu")

@@ -134,6 +134,39 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     assert tpipe.init_state(cfg, device="cpu").stamp.device.type == "cpu"
 
 
+def test_helpers_need_a_gpu_unless_asked_for_cpu(monkeypatch):
+    """The person detector's loader, the fern table and the empty MOD
+    context default to the card, and raise without one unless asked for
+    the CPU; so do the sharded ranks (`parallel.distributed.launch`, here
+    through `mesh.dryrun`)."""
+    from supersurfel_fusion_tpu_torch.models.person_detector import (
+        load_detector,
+    )
+    from supersurfel_fusion_tpu_torch.ops import ferns, motion
+    from supersurfel_fusion_tpu_torch.parallel import mesh
+
+    from pathlib import Path
+
+    weights = Path(__file__).resolve().parents[1] / "weights" \
+        / "person_detector.npz"
+    fc = tcfg.FernsConfig(nb_ferns=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make, cpu in (
+            (lambda **kw: load_detector(weights, **kw),
+             lambda d: next(d.parameters()).device),
+            (lambda **kw: ferns.make_fern_table(fc, 64, 48, 5.0, **kw),
+             lambda t: t[0].device),
+            (lambda **kw: motion.init_prev(48, 64, 8, 16, **kw),
+             lambda p: p.gray.device)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert cpu(make(device="cpu")).type == "cpu"
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            mesh.dryrun(1)
+
+
 def test_unported_options_are_refused():
     """The options measured and rejected in the JAX package are refused;
     ferns and loop closure run."""
