@@ -52,7 +52,24 @@ JAX, and:
    agreement on every frame, the closure, the poses against the
    single-device phase, ms per frame, collectives and bytes per frame,
    host waits, peak memory per rank;
-12. prints the kernel table as one JSON line (launches summed over every
+12. options phase: the three default-off options through
+   `SupersurfelFusion` on the card against the plain CPU path, 3 frames
+   each: `fusion.freeze_on_tracking_loss` and `fusion.insert_requires_icp`
+   on the static clip whose third frame has inverted colours, so that ICP
+   is gate-rejected there (the model kept, nothing inserted), and
+   `mod.temporal_heat` on the fr3 MOD configuration's dynamic clip;
+13. collect phase: the dynamic clip written as a TUM sequence through the
+   trainer's `--collect` on the card: the label file's layout, the TPS
+   launches, and the boxes against the mover's known image rectangle;
+14. training phase: the person detector's trainer
+   (`tools/train_person_detector.py`) at full width on the committed
+   labels: the first steps on the card against the plain CPU path from
+   one seeded init, then the committed weights' own command (716 frames
+   at 640x480, batch 8, 30 epochs): ms per step, steps and frames per
+   second, wall time, peak memory, the loss of every epoch against a band
+   set from CPU runs, held-out recall and precision beside the committed
+   weights'; then the detector phase again with the card-trained weights;
+15. prints the kernel table as one JSON line (launches summed over every
    pipeline phase and every rank) and, last,
    {"ok": true, "device": {...}}.
 
@@ -63,6 +80,8 @@ last line. It also exits non-zero when no CUDA device is available.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -136,6 +155,40 @@ SHARD_CLOSURE_FRAME = 25
 SHARD_POSE_MAX = 0.03
 SHARD_ROT_MAX = 0.1
 SHARD_MOD_FRAMES = 4
+# the options phase: each default-off option, 3 frames on the card and on
+# the plain CPU path (poses within 2 mm); the fusion options on the static
+# clip whose third frame has inverted colours (ICP is gate-rejected),
+# temporal heat on the fr3 MOD configuration's dynamic clip
+OPT_FRAMES = 3
+OPT_POSE_MAX = 2e-3
+# the collect phase: the dynamic clip as a TUM sequence through the
+# trainer's --collect (simple MOD path, fr3 camera) on the card; a label
+# box hits the mover where its IoU with the mover's image rectangle
+# exceeds 0.3. On the CPU every one of the clip's labelled frames has
+# such a box (PERF.md); at least half must on the card
+COLLECT_FRAMES = 30
+COLLECT_HIT_SHARE = 0.5
+# the training phase: the committed weights' own command
+# (artifacts/run_exp5.sh: 716 fr3 frames at 640x480, batch 8, 30 epochs,
+# lr 3e-4, no label filter, no augmentation); the card against the plain
+# CPU path over the first steps from one seeded init (cuDNN asked for
+# deterministic algorithms): losses within 1e-4 relative, weights within
+# 1e-4 (the port against JAX on the CPU: 1.4e-5 after 8 steps)
+TRAIN_DATA = "artifacts/mod_boxes_train.npz"
+EVAL_DATA = "artifacts/mod_boxes_eval.npz"
+COMMITTED_WEIGHTS = "weights/person_detector.npz"
+TRAIN_EPOCHS = 30
+TRAIN_BATCH = 8
+TRAIN_LR = 3e-4
+TRAIN_CPU_STEPS = 5
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-4
+# the last epoch's mean loss, from CPU runs of the same command made
+# before the first chip run (PERF.md): JAX from its own init 2.8471
+# (first epoch 4.2315), the port from its seeded init 2.7742 (4.2091); the
+# band is their range widened by 0.1 (the epoch-to-epoch spread over the
+# last ten epochs is about 0.06)
+TRAIN_FINAL_LOSS = (2.67, 2.95)
 H100_HBM_BPS = 3.35e12
 H100_FP32_FLOPS = 67e12
 # device time per call of the earlier kernels these replace (the per-phase
@@ -498,9 +551,10 @@ def pipeline_phase(dev):
     return launches, float(np.mean(steady) * 1e3), peak
 
 
-def detector_phase(dev):
+def detector_phase(dev, weights=None):
     """The person detector on the card against the plain CPU path on one
-    rendered 640x480 frame: heat map and valid boxes."""
+    rendered 640x480 frame: heat map and valid boxes. `weights`: a
+    checkpoint other than the committed one."""
     import torch
 
     from supersurfel_fusion_tpu_torch import synthetic
@@ -511,7 +565,7 @@ def detector_phase(dev):
     from supersurfel_fusion_tpu_torch.utils.color import rgb_to_gray
 
     cfg = mod_config()
-    weights = cfg.mod.weights_path
+    weights = weights or cfg.mod.weights_path
     rgb, depth, _, _ = synthetic.dynamic_frames(cfg.cam, 4)[3]
     gray = rgb_to_gray(torch.from_numpy(rgb).float())
     d = torch.from_numpy(depth.astype(np.float32)) * cfg.depth_scale
@@ -1481,6 +1535,275 @@ def sharded_phase(d: int, backend: str, single_traj):
         "coll_ms": float(np.median(coll_ms))}
 
 
+def _inverted(clip):
+    """The static clip's frames as (rgb, depth), the third with inverted
+    colours: the geometry is unchanged, but no ICP correspondence passes
+    the colour gate."""
+    out = [(rgb, depth) for rgb, depth, _ in clip]
+    out[2] = (255 - out[2][0], out[2][1])
+    return out
+
+
+def options_phase(dev):
+    """The three default-off options through `SupersurfelFusion` on the
+    card against the plain CPU path: the fusion options on a frame whose
+    ICP is gate-rejected, temporal heat on the MOD configuration."""
+    import dataclasses
+
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.config import (
+        FusionConfig,
+        PipelineConfig,
+    )
+    from supersurfel_fusion_tpu_torch.ops import tps_cuda
+    from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
+    from supersurfel_fusion_tpu_torch.tools.profile_frame import mod_config
+
+    static = _inverted(synthetic.frames(PipelineConfig().cam, OPT_FRAMES))
+    mcfg = mod_config()
+    mcfg = dataclasses.replace(mcfg, mod=dataclasses.replace(
+        mcfg.mod, temporal_heat=True))
+    dynamic = [(rgb, depth) for rgb, depth, _, _ in
+               synthetic.dynamic_frames(mcfg.cam, OPT_FRAMES)]
+    cases = {
+        "freeze": (PipelineConfig(fusion=FusionConfig(
+            freeze_on_tracking_loss=True)), static),
+        "gate": (PipelineConfig(fusion=FusionConfig(
+            insert_requires_icp=True)), static),
+        "heat": (mcfg, dynamic),
+    }
+    launches = {k: 0 for k in tps_cuda.launch_counts}
+    summary = {}
+    for name, (cfg, clip) in cases.items():
+        runs = {}
+        for where in (dev, "cpu"):
+            slam = SupersurfelFusion(cfg, device=where)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                tps_cuda.reset_launch_counts()
+            outs, nbs = [], []
+            for k, (rgb, depth) in enumerate(clip):
+                outs.append(slam.process(rgb, depth, timestamp=float(k)))
+                nbs.append(int(slam.state.model.nb_supersurfels))
+            if where != "cpu":
+                for k, v in tps_cuda.launch_counts.items():
+                    launches[k] += v
+            runs[str(where)] = (np.array(slam.trajectory), outs, nbs,
+                                slam.state)
+        (tg, og, ng, sg), (tc, oc, nc, sc) = runs[str(dev)], runs["cpu"]
+        dt = np.abs(tg[:, :3] - tc[:, :3]).max()
+        icp = [(bool(a.icp_valid), bool(b.icp_valid)) for a, b in zip(og, oc)]
+        log(f"  {name}: nb_supersurfels card {ng}, CPU {nc}; icp valid "
+            f"(card, CPU) {icp}; inserted on the last frame card "
+            f"{int(og[-1].n_inserted)}, CPU {int(oc[-1].n_inserted)}; max "
+            f"|dt| {dt:.2e} m")
+        check(bool(np.isfinite(tg).all()) and dt < OPT_POSE_MAX,
+              f"{name}: card agrees with the plain CPU path (|dt| < 2 mm)")
+        if name == "heat":
+            agree = float(np.mean([
+                (a.static_sp.cpu() == b.static_sp).float().mean().item()
+                for a, b in zip(og, oc)]))
+            hg, hc = sg.mod_prev.heat.cpu(), sc.mod_prev.heat
+            herr = (hg - hc).abs().max().item()
+            log(f"  heat: static_sp agreement {agree:.4f}, heat max "
+                f"{hg.max().item():.3f}, card vs CPU max |diff| {herr:.2e}")
+            check(agree >= MOTION_SP_AGREE and bool(torch.isfinite(hg).all()),
+                  "heat: MOD decisions agree with the CPU and the heat is "
+                  "finite")
+            summary[name] = {"agree": agree, "heat_err": herr,
+                             "heat_max": hg.max().item(), "dt": float(dt)}
+            continue
+        for o, n in ((og, ng), (oc, nc)):
+            rejected = not bool(o[-1].icp_valid) and bool(o[1].icp_valid)
+            check(rejected and int(o[-1].n_inserted) == 0,
+                  f"{name}: ICP rejects the inverted frame and nothing is "
+                  "inserted")
+            if name == "freeze":
+                check(n[-1] == n[-2] and int(o[-1].n_fused) == 0,
+                      "freeze: the model is kept on the rejected frame")
+        summary[name] = {"nb": ng, "dt": float(dt)}
+    return launches, summary
+
+
+def _mover_rect(cam, pose, k):
+    """The mover's image rectangle at frame k: its box corners
+    (`synthetic.box_bounds`) projected through the camera pose."""
+    from supersurfel_fusion_tpu_torch import synthetic
+
+    R, t = pose
+    lo, hi = synthetic.box_bounds(k)
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                        for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+    pc = (corners - t) @ R           # world -> camera (R maps camera to world)
+    u = cam.fx * pc[:, 0] / pc[:, 2] + cam.cx
+    v = cam.fy * pc[:, 1] / pc[:, 2] + cam.cy
+    return (max(u.min(), 0.0), max(v.min(), 0.0),
+            min(u.max(), cam.width), min(v.max(), cam.height))
+
+
+def _iou(a, b):
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / max(union, 1e-9)
+
+
+def collect_phase(dev):
+    """The trainer's `--collect` on the card over the dynamic clip written
+    as a TUM sequence: the label file's layout, and its boxes against the
+    mover's known image rectangle."""
+    import tempfile
+
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.config import CameraIntrinsics
+    from supersurfel_fusion_tpu_torch.ops import tps_cuda
+    from supersurfel_fusion_tpu_torch.tools import train_person_detector
+
+    cam = CameraIntrinsics.tum_fr3()
+    clip = synthetic.dynamic_frames(cam, COLLECT_FRAMES)
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "rgbd_dataset_freiburg3_synthetic")
+        synthetic.write_tum_sequence(seq, [c[:3] for c in clip])
+        out = os.path.join(tmp, "labels.npz")
+        torch.cuda.synchronize()
+        tps_cuda.reset_launch_counts()
+        t0 = time.time()
+        rc = train_person_detector.main(["--collect", "--dataset", seq,
+                                         "--out", out])
+        wall = time.time() - t0
+        launches = dict(tps_cuda.launch_counts)
+        with np.load(out) as lab:
+            gray, depth = lab["gray"], lab["depth"]
+            boxes, counts = lab["boxes"], lab["counts"]
+            start, end = int(lab["start"]), int(lab["end"])
+    n = COLLECT_FRAMES - 2
+    log(f"  collect: rc {rc} in {wall:.1f} s, {len(counts)} frames, "
+        f"{int(counts.sum())} boxes, launches {launches}")
+    check(rc == 0 and gray.shape == (n, cam.height, cam.width)
+          and gray.dtype == np.uint8 and depth.dtype == np.uint16
+          and (start, end) == (0, COLLECT_FRAMES) and len(counts) == n,
+          "collect: the label file's layout (frames 2.. of the sequence)")
+    check(launches["tps_iteration"] == 10 * COLLECT_FRAMES
+          and launches["tps_merge"] == 12 * COLLECT_FRAMES,
+          "collect: 10 + 12 TPS launches per frame")
+    hits, per_frame = 0, []
+    for i in range(n):
+        k = i + 2
+        rect = _mover_rect(cam, clip[k][2], k)
+        bs = boxes[i, :counts[i]]
+        best = max((_iou(b, rect) for b in bs), default=0.0)
+        hits += best > 0.3
+        per_frame.append(int(counts[i]))
+    log(f"  collect: boxes per frame {per_frame}; frames with a box hitting "
+        f"the mover (IoU > 0.3): {hits}/{n}")
+    check(bool(np.isfinite(boxes).all()) and bool(
+        (boxes[..., 2:] <= np.array([cam.width, cam.height])).all()),
+          "collect: boxes finite and inside the image")
+    check(hits >= COLLECT_HIT_SHARE * n,
+          f"collect: a box hits the mover on >= {COLLECT_HIT_SHARE:.0%} of "
+          "the labelled frames")
+    return launches, {"hits": hits, "frames": n, "boxes": int(counts.sum()),
+                      "wall_s": wall}
+
+
+def training_phase(dev):
+    """The trainer on the card at full width: the first steps against the
+    plain CPU path, then the committed weights' own command through
+    `train`, timed, evaluated against the committed weights on the
+    held-out labels. Returns the trained checkpoint's path (in `tmp`)."""
+    import tempfile
+
+    import torch
+
+    from supersurfel_fusion_tpu_torch.convert import to_params
+    from supersurfel_fusion_tpu_torch.models.person_detector import (
+        init_params,
+        load_detector,
+    )
+    from supersurfel_fusion_tpu_torch.tools import train_person_detector as tt
+
+    t0 = time.time()
+    g, d, b, c, _ = tt.load_labels(TRAIN_DATA)
+    log(f"  labels: {len(c)} frames {g.shape[1]}x{g.shape[2]}, "
+        f"{int(c.sum())} boxes, loaded in {time.time() - t0:.2f} s")
+
+    # the card against the plain CPU path from one seeded init
+    init = init_params()
+    n_steps = tt.schedule_steps(len(c), TRAIN_BATCH, TRAIN_EPOCHS)
+    first = {}
+    torch.backends.cudnn.deterministic = True
+    for where in ("cpu", dev):
+        trainer = tt.Trainer(init, n_steps, TRAIN_LR, where)
+        labels = tt.prepare(g, d, b, c, where)
+        r = tt.fit(trainer, labels, c, TRAIN_BATCH, 1, False,
+                   max_steps=TRAIN_CPU_STEPS)
+        first[str(where)] = (np.array(r["step_loss"]),
+                             to_params(trainer.det))
+        del trainer, labels
+    torch.backends.cudnn.deterministic = False
+    (lc, pc), (lg, pg) = first["cpu"], first[str(dev)]
+    lerr = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    perr = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc)
+    log(f"  first {TRAIN_CPU_STEPS} steps: losses card {lg.tolist()}, CPU "
+        f"{lc.tolist()}; max relative |diff| {lerr:.2e}, weights max "
+        f"|diff| {perr:.2e}")
+    check(lerr <= TRAIN_LOSS_RTOL and perr <= TRAIN_PARAM_ATOL,
+          f"training: card agrees with the plain CPU path over the first "
+          f"{TRAIN_CPU_STEPS} steps")
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp()
+    out = os.path.join(tmp, "person_detector_card.npz")
+    args = tt.parse_args(["--train", "--data", TRAIN_DATA, "--eval-data",
+                          EVAL_DATA, "--out", out, "--epochs",
+                          str(TRAIN_EPOCHS), "--batch", str(TRAIN_BATCH),
+                          "--lr", str(TRAIN_LR)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = tt.train(args, timing=True)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = np.array(res["step_ms"])
+    steps = len(ms)
+    losses = res["epoch_loss"]
+    log(f"  {len(losses)} epochs, {steps} steps ({res['n_steps']} in the "
+        f"schedule): ms/step median {np.median(ms):.3f}, p90 "
+        f"{np.percentile(ms, 90):.3f}, mean {ms.mean():.3f}; "
+        f"{1e3 / ms.mean():.1f} steps/s, {TRAIN_BATCH * 1e3 / ms.mean():.1f}"
+        f" frames/s; epochs {res['train_s']:.2f} s, whole command "
+        f"{wall:.2f} s; peak memory {peak / 2**20:.1f} MiB")
+    log(f"  epoch losses {[round(x, 4) for x in losses]}")
+    committed = load_detector(COMMITTED_WEIGHTS, dev)
+    eg, ed, eb, ec, _ = tt.load_labels(EVAL_DATA)
+    ref = tt._eval_boxes(committed, "committed weights, HELD-OUT", eg, ed, eb,
+                         ec)
+    held = res["eval"]["held_out"]
+    check(steps == TRAIN_EPOCHS * res["steps_per_epoch"]
+          and len(losses) == TRAIN_EPOCHS, f"training: {TRAIN_EPOCHS} whole "
+          f"epochs ({steps} steps)")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          "training: the last epoch's loss below the first's")
+    lo, hi = TRAIN_FINAL_LOSS
+    check(lo <= losses[-1] <= hi, f"training: the last epoch's loss "
+          f"{losses[-1]:.4f} in [{lo}, {hi}] (CPU reference runs)")
+    return out, {
+        "ms_median": float(np.median(ms)),
+        "ms_p90": float(np.percentile(ms, 90)),
+        "steps_per_s": float(1e3 / ms.mean()),
+        "frames_per_s": float(TRAIN_BATCH * 1e3 / ms.mean()),
+        "epochs_s": res["train_s"], "wall_s": wall, "peak_mib": peak / 2**20,
+        "epoch_loss": losses, "held_out": held._asdict(),
+        "committed": ref._asdict(), "first_loss_err": lerr,
+        "first_param_err": perr}
+
+
 def main() -> int:
     try:
         import torch
@@ -1549,6 +1872,23 @@ def main() -> int:
           and sh2["accepted"][0] == sh1["accepted"][0],
           "D=2 stores the keyframes and accepts the closure as D=1")
 
+    t0 = time.time()
+    opt_launches, opt = options_phase(dev)
+    phase_done("options", t0)
+
+    t0 = time.time()
+    col_launches, col = collect_phase(dev)
+    phase_done("collect", t0)
+
+    t0 = time.time()
+    trained, tr = training_phase(dev)
+    phase_done("training", t0)
+
+    t0 = time.time()
+    detector_phase(dev, weights=trained)
+    shutil.rmtree(os.path.dirname(trained))
+    phase_done("detector with the card-trained weights", t0)
+
     rows = []
     for name in ("tps_iteration", "tps_merge"):
         r = kern[name]
@@ -1561,7 +1901,8 @@ def main() -> int:
             "launches": (launches[name] + mod_launches[name]
                          + lc_launches[name] + run_launches[name]
                          + live_launches[name] + sh1_launches[name]
-                         + sh2_launches[name]),
+                         + sh2_launches[name] + opt_launches[name]
+                         + col_launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1575,7 +1916,17 @@ def main() -> int:
         f"{live['lat_median_ms']:.0f} ms, backlog {live['backlog_max']}; "
         f"sharded D=1 {sh1['ms_ordinary']:.2f} ms/frame (closure "
         f"{sh1['ms_closure']:.2f}), D=2 {sh2['ms_ordinary']:.2f} (closure "
-        f"{sh2['ms_closure']:.2f}); total {time.time() - _T0:.1f} s")
+        f"{sh2['ms_closure']:.2f}); collect {col['hits']}/{col['frames']} "
+        f"frames hit the mover; training {tr['ms_median']:.3f} ms/step "
+        f"median, {tr['frames_per_s']:.0f} frames/s, {tr['epochs_s']:.1f} s "
+        f"for {TRAIN_EPOCHS} epochs, last epoch loss "
+        f"{tr['epoch_loss'][-1]:.4f}, held-out recall "
+        f"{tr['held_out']['recall']:.3f} precision "
+        f"{tr['held_out']['precision']:.3f} (committed weights "
+        f"{tr['committed']['recall']:.3f} / "
+        f"{tr['committed']['precision']:.3f}); total "
+        f"{time.time() - _T0:.1f} s")
+    log("training " + json.dumps(tr))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

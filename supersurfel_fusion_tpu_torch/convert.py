@@ -116,6 +116,19 @@ def detector_from_numpy(params: dict) -> PersonDetector:
         {k: np.asarray(v) for k, v in params.items()})
 
 
+def to_params(det: PersonDetector) -> dict:
+    """The JAX package's parameter dict (numpy, HWIO weights) of `det`:
+    the inverse of `detector_from_numpy`, the layout the checkpoints
+    hold."""
+    out = {}
+    for name, conv in [(f"conv{i}", c) for i, c in enumerate(det.stages)] \
+            + [("heat", det.heat), ("size", det.size)]:
+        out[f"{name}_w"] = conv.weight.detach().permute(2, 3, 1, 0) \
+            .contiguous().cpu().numpy()
+        out[f"{name}_b"] = conv.bias.detach().cpu().numpy().copy()
+    return out
+
+
 def state_to_numpy(state: SLAMState) -> dict:
     """The port's state as a flat dict of numpy arrays, named like the JAX
     fields (descriptor words as uint32, as the JAX package keeps them)."""

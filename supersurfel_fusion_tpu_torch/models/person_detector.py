@@ -11,8 +11,10 @@ computes them with XLA, outside any Pallas kernel). JAX's "SAME" padding
 is asymmetric: for stride s, kernel k and size n the total pad is
 max((ceil(n/s) - 1) * s + k - n, 0) and the low side gets total // 2, so
 it is applied explicitly. The weights come from the committed `.npz`
-(HWIO, turned into OIHW); the random initialisation of the JAX package
-(`init_params`, training structure) is not ported.
+(HWIO, turned into OIHW). `init_params` gives the randomly initialised
+training structure (HWIO numpy arrays, as the JAX package's), and
+`PersonDetector.forward_maps` the batched forward the trainer
+(`tools/train_person_detector.py`) differentiates.
 """
 
 from __future__ import annotations
@@ -33,6 +35,34 @@ Tensor = torch.Tensor
 # (out_channels, stride) per stage; the input is grey + depth (2 channels)
 _STAGES = [(16, 2), (32, 2), (64, 2), (96, 2)]
 _HEAD_CH = 96
+
+
+def init_params(generator: torch.Generator | None = None,
+                in_ch: int = 2) -> dict:
+    """The randomly initialised parameter dict (numpy arrays, HWIO), with
+    the JAX package's structure and scales: He normal for the four stages,
+    0.01 for the heads, a -4 heat bias (a low prior), zero biases. Draws
+    from `generator` (default: seeded with 0); the values cannot equal
+    `jax.random`'s."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=generator, dtype=torch.float64)
+                * scale).to(torch.float32).numpy()
+
+    params = {}
+    c_in = in_ch
+    for i, (c_out, _) in enumerate(_STAGES):
+        params[f"conv{i}_w"] = normal((3, 3, c_in, c_out),
+                                      math.sqrt(2.0 / (9 * c_in)))
+        params[f"conv{i}_b"] = np.zeros((c_out,), np.float32)
+        c_in = c_out
+    params["heat_w"] = normal((3, 3, _HEAD_CH, 1), 0.01)
+    params["heat_b"] = np.full((1,), -4.0, np.float32)
+    params["size_w"] = normal((3, 3, _HEAD_CH, 2), 0.01)
+    params["size_b"] = np.zeros((2,), np.float32)
+    return params
 
 
 class Detections(NamedTuple):
@@ -63,7 +93,8 @@ class PersonDetector(nn.Module):
         self.stages = nn.ModuleList(convs)
         self.heat = nn.Conv2d(_HEAD_CH, 1, 3)
         self.size = nn.Conv2d(_HEAD_CH, 2, 3)
-        # inference only: no autograd graph on the frame step
+        # inference only: no autograd graph on the frame step (the trainer
+        # switches gradients on for its own copy)
         self.requires_grad_(False)
 
     @staticmethod
@@ -84,17 +115,23 @@ class PersonDetector(nn.Module):
         load(det.size, "size")
         return det
 
-    def maps(self, gray: Tensor, depth: Tensor):
-        """(heat (h, w), size (h, w, 2)) on the stride-16 grid."""
-        x = torch.stack([gray / 255.0, torch.clamp(depth, 0, 5.0) / 5.0])
-        x = x[None]
+    def forward_maps(self, gray: Tensor, depth: Tensor):
+        """Batched maps on the stride-16 grid: gray and depth (B, H, W) ->
+        (heat logits (B, h, w), size (B, h, w, 2))."""
+        x = torch.stack([gray / 255.0, torch.clamp(depth, 0, 5.0) / 5.0],
+                        dim=1)
         for conv, (_, s) in zip(self.stages, _STAGES):
             x = F.relu(F.conv2d(_same_pad(x, s), conv.weight, conv.bias,
                                 stride=s))
         x = _same_pad(x, 1)
-        heat = torch.sigmoid(F.conv2d(x, self.heat.weight, self.heat.bias))
+        logits = F.conv2d(x, self.heat.weight, self.heat.bias)
         size = F.conv2d(x, self.size.weight, self.size.bias)
-        return heat[0, 0], size[0].permute(1, 2, 0)
+        return logits[:, 0], size.permute(0, 2, 3, 1)
+
+    def maps(self, gray: Tensor, depth: Tensor):
+        """(heat (h, w), size (h, w, 2)) on the stride-16 grid."""
+        logits, size = self.forward_maps(gray[None], depth[None])
+        return torch.sigmoid(logits[0]), size[0]
 
     def forward(self, gray: Tensor, depth: Tensor, max_det: int = 8,
                 score_thresh: float = 0.3) -> Detections:

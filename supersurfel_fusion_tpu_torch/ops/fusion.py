@@ -191,11 +191,15 @@ def _fuse(frame: Supersurfels, model: Supersurfels, match: MatchResult,
 
 
 def _insert(frame: Supersurfels, model: Supersurfels, match: MatchResult,
-            nb_supersurfels: Tensor, R: Tensor, t: Tensor, stamp: Tensor):
-    """Append unmatched valid frame surfels via prefix-sum compaction."""
+            nb_supersurfels: Tensor, R: Tensor, t: Tensor, stamp: Tensor,
+            allow: Tensor | None = None):
+    """Append unmatched valid frame surfels via prefix-sum compaction.
+    `allow` (() bool), when false, inserts nothing and drops nothing."""
     F = frame.capacity
     C = model.capacity
     insert = (frame.confidences > 0.0) & ~match.matched
+    if allow is not None:
+        insert = insert & allow
     slot_off = torch.cumsum(insert.to(torch.int32), 0) - 1
     slot = nb_supersurfels + slot_off
     ok = insert & (slot < C)
@@ -320,17 +324,30 @@ def _bootstrap(model: Supersurfels, frame: Supersurfels, R: Tensor,
     return ModelState(boot, nF, nF.clone()), FusionStats(zero, nF, zero, zero)
 
 
+def where_tree(ok: Tensor, new, old):
+    """`new` where the () bool `ok` holds, else `old`: the same nesting of
+    NamedTuples and tuples of tensors, selected leaf by leaf on the
+    device."""
+    if isinstance(new, Tensor):
+        return torch.where(ok, new, old)
+    parts = [where_tree(ok, a, b) for a, b in zip(new, old)]
+    return type(new)(*parts) if hasattr(new, "_fields") else type(new)(parts)
+
+
 def update_model(state: ModelState, frame: Supersurfels, labels: Tensor,
                  plane_depth: Tensor, R: Tensor, t: Tensor,
                  cam: CameraIntrinsics, cfg: FusionConfig,
-                 conf_thresh: float, stamp: Tensor):
+                 conf_thresh: float, stamp: Tensor,
+                 allow_insert: Tensor | None = None):
     """Full per-frame model maintenance, bootstrap included.
     Returns (ModelState, FusionStats).
 
     The JAX package picks bootstrap or update with `lax.cond`; here both are
     computed and the result selected on the device, so the frame step needs
-    no host sync. The update always inserts: the JAX `allow_insert` option
-    (insert_requires_icp, measured and rejected) is not ported."""
+    no host sync. `allow_insert` (() bool tensor), when false, skips the
+    insertion of new surfels while fusion, visibility and filtering stay
+    live (`fusion.insert_requires_icp`); the JAX package's `lax.cond` is a
+    mask here, with the same result. None always inserts."""
     model, nb, nbv = state.surfels, state.nb_supersurfels, state.nb_visible
     boot_state, boot_stats = _bootstrap(model, frame, R, t)
 
@@ -339,7 +356,7 @@ def update_model(state: ModelState, frame: Supersurfels, labels: Tensor,
                               cam, cfg)
     fused = _fuse(frame, model, match, R, t, stamp)
     inserted, nb_new, n_dropped = _insert(frame, fused, match, nb, R, t,
-                                          stamp)
+                                          stamp, allow_insert)
     compacted, nb_live, nb_vis = filter_and_compact(
         inserted, nb_new, plane_depth, R, t, cam, cfg, conf_thresh, stamp)
     stats = FusionStats(
@@ -349,18 +366,5 @@ def update_model(state: ModelState, frame: Supersurfels, labels: Tensor,
         n_removed=(nb_new - nb_live).to(torch.int32),
         n_dropped=n_dropped,
     )
-    new_state = ModelState(compacted, nb_live, nb_vis)
-
-    is_boot = nb == 0
-
-    def pick(a, b):
-        return torch.where(is_boot, a, b)
-
-    out_state = ModelState(
-        Supersurfels(*(pick(a, b) for a, b in zip(boot_state.surfels,
-                                                  new_state.surfels))),
-        pick(boot_state.nb_supersurfels, new_state.nb_supersurfels),
-        pick(boot_state.nb_visible, new_state.nb_visible),
-    )
-    out_stats = FusionStats(*(pick(a, b) for a, b in zip(boot_stats, stats)))
-    return out_state, out_stats
+    return where_tree(nb == 0, (boot_state, boot_stats),
+                      (ModelState(compacted, nb_live, nb_vis), stats))

@@ -20,8 +20,9 @@ and its 24 neighbours, gated ones pointing at the sentinel), so that the
 geometric clustering, the residual hysteresis and the person flood fill
 (all boxes at once) each cost a few launches per iteration. They are
 integer min and boolean or, so the results are bit-identical to the
-shifted form. `temporal_heat` was measured and rejected in the JAX package
-and is refused here; `MODPrev.heat` is carried through unchanged.
+shifted form. With `temporal_heat` (default off) a per-cell heat map
+carried in `MODPrev.heat` keeps recently marked cells dynamic
+(`heat_update`); with it off the heat is carried through unchanged.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from supersurfel_fusion_tpu_torch.config import (
 from supersurfel_fusion_tpu_torch.device import resolve_device
 from supersurfel_fusion_tpu_torch.ops.features import Keypoints
 from supersurfel_fusion_tpu_torch.ops.flow import (
+    bilinear_sample,
     dense_flow,
     estimate_similarity_ransac,
     se3_depth_residual,
@@ -276,6 +278,40 @@ def _cluster_sum(lab_c: Tensor, values: Tensor, n: int) -> Tensor:
     return out.index_add_(0, lab_c, values)
 
 
+def heat_update(prev_heat: Tensor, fresh: Tensor, a, b, tx, ty, warp_ok,
+                cs: int, cfg: MODConfig):
+    """Temporal-persistence update for the dynamic mask.
+
+    prev_heat: (GH, GW) heat after the previous frame. fresh: (GH, GW) bool,
+    this frame's real-evidence dynamic marks. (a, b, tx, ty) is the
+    previous->current camera-motion similarity; the heat rides along by
+    sampling prev_heat at the inverse-transformed current cell centre
+    (the identity where warp_ok is false). Returns (heat_mark (GH, GW)
+    bool: the cells to keep dynamic, new_heat (GH, GW)). Fresh evidence
+    rewrites the heat to 1, so persistence is bounded at about
+    log(heat_thresh)/log(heat_decay) frames after the last real
+    detection; the heat never reinforces itself."""
+    gh, gw = prev_heat.shape
+    dev = prev_heat.device
+    a, b, tx, ty = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                    for v in (a, b, tx, ty))
+    cy = (torch.arange(gh, dtype=torch.float32, device=dev)[:, None]
+          + 0.5).expand(gh, gw) * cs
+    cx = (torch.arange(gw, dtype=torch.float32, device=dev)[None, :]
+          + 0.5).expand(gh, gw) * cs
+    det_s = torch.clamp(a * a + b * b, min=1e-12)
+    px = (a * (cx - tx) + b * (cy - ty)) / det_s
+    py = (-b * (cx - tx) + a * (cy - ty)) / det_s
+    warp_ok = torch.as_tensor(warp_ok, device=dev)
+    px = torch.where(warp_ok, px, cx)
+    py = torch.where(warp_ok, py, cy)
+    warped = bilinear_sample(prev_heat, px / cs - 0.5, py / cs - 0.5, 0.0)
+    heat_mark = warped > cfg.heat_thresh
+    new_heat = torch.maximum(fresh.to(torch.float32),
+                             warped * cfg.heat_decay)
+    return heat_mark, new_heat
+
+
 def detect_motion(
     rgb_gray: Tensor,
     depth: Tensor,
@@ -294,11 +330,8 @@ def detect_motion(
     cfg.use_yolo is set.
 
     Returns (is_static_sp (N,) bool, static_kp (K,) bool, new_prev). On
-    the first frame (prev.initialized false) only person and residual
-    marks apply."""
-    if cfg.temporal_heat:
-        raise NotImplementedError("not ported: mod.temporal_heat (measured "
-                                  "and rejected in the JAX package)")
+    the first frame (prev.initialized false) only person, residual and
+    heat marks apply."""
     H, W = rgb_gray.shape
     dev = rgb_gray.device
     cs = tps_cfg.cell_size
@@ -455,10 +488,27 @@ def detect_motion(
 
     dynamic = ((label >= 0) & dyn_cluster[lab_c]) | person | mark_resid
 
+    # ---- temporal persistence: paused movers stop firing the cues above
+    # but stay dynamic while the heat carried from their last detection
+    # (warped by the camera-motion similarity, decayed) is above
+    # heat_thresh. The heat is seeded only from the targeted cues (person
+    # boxes and direct depth-residual marks), never from the clusters.
+    if cfg.temporal_heat:
+        heat_mark, new_heat = heat_update(
+            prev.heat, (person | mark_resid).reshape(gh, gw), a, b, tx, ty,
+            H_ok & prev.initialized, cs, cfg)
+        heat_mark = heat_mark.reshape(-1) & prev.initialized
+        dynamic = dynamic | heat_mark
+    else:
+        heat_mark = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
+        new_heat = prev.heat
+
     first_frame = ~prev.initialized | ~H_ok
-    # person and residual marks apply even when the 2D flow compensation
-    # failed (the rigid fit is gated separately by rigid_ok)
-    is_static_sp = torch.where(first_frame, ~(person | mark_resid), ~dynamic)
+    # person-, residual- and heat-driven marks apply even when the 2D flow
+    # compensation failed (the rigid fit is gated separately by rigid_ok;
+    # the heat falls back to an identity warp)
+    is_static_sp = torch.where(first_frame,
+                               ~(person | mark_resid | heat_mark), ~dynamic)
 
     # ---- static keypoints (dynamic ones dropped from VO + prev context)
     static_kp = kp.valid & is_static_sp[kp_sp]
@@ -471,6 +521,6 @@ def detect_motion(
         kp_desc=kp.desc,
         kp_valid=static_kp,
         initialized=torch.ones((), dtype=torch.bool, device=dev),
-        heat=prev.heat,
+        heat=new_heat,
     )
     return is_static_sp, static_kp, new_prev

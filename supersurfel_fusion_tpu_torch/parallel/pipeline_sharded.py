@@ -30,12 +30,16 @@ query's minimum, the summed stamp), so every rank takes the same branch.
 
 Replicated values must be bit-identical on every rank, or the summed ICP
 systems mix different poses. With MOD on and more than one rank, rank
-0's MOD decision (which superpixels and keypoints are static) is
-broadcast to all ranks: MOD's cluster statistics are float sums by
-atomic adds on CUDA, whose rounding may differ between processes.
+0's MOD decision (which superpixels and keypoints are static, and with
+`mod.temporal_heat` the heat map carried to the next frame) is broadcast
+to all ranks: MOD's cluster statistics are float sums by atomic adds on
+CUDA, whose rounding may differ between processes.
 
-`fusion.freeze_on_tracking_loss` and the other options the single-device
-step refuses are refused here too.
+`fusion.freeze_on_tracking_loss` keeps every rank's block on a frame
+whose ICP was gate-rejected against a live model, by a select with a
+replicated predicate (the collectives stay out of divergent control
+flow). `fusion.insert_requires_icp` is refused: the JAX package's sharded
+step does not implement it.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from supersurfel_fusion_tpu_torch.ops import loop_closure as lc_ops
 from supersurfel_fusion_tpu_torch.ops import motion as motion_ops
 from supersurfel_fusion_tpu_torch.ops import vo as vo_ops
 from supersurfel_fusion_tpu_torch.ops.features import keypoint_capacity
+from supersurfel_fusion_tpu_torch.ops.fusion import where_tree
 from supersurfel_fusion_tpu_torch.parallel import kf_sharded as kf_sh
 from supersurfel_fusion_tpu_torch.parallel.mesh import Mesh, psum
 from supersurfel_fusion_tpu_torch.parallel.sharding import (
@@ -65,7 +70,6 @@ from supersurfel_fusion_tpu_torch.parallel.sharding import (
 )
 from supersurfel_fusion_tpu_torch.pipeline import (
     _target_maps,
-    check_supported,
     fern_codes,
     frame_inputs,
     front_end,
@@ -110,6 +114,16 @@ class ShardedFrameOutput(NamedTuple):
     lc_accepted: Optional[Tensor] = None
 
 
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise for the option the sharded step does not run:
+    `fusion.insert_requires_icp`, which the JAX package's sharded step
+    does not implement either (it ignores the flag)."""
+    if cfg.fusion.insert_requires_icp:
+        raise NotImplementedError(
+            "the sharded step does not run fusion.insert_requires_icp (the "
+            "JAX package's sharded step lacks it)")
+
+
 def init_sharded_state(cfg: PipelineConfig, mesh: Mesh) -> ShardedSLAMState:
     """This rank's empty state on the mesh's device. The model's and the
     keyframe store's capacities must divide by the number of ranks."""
@@ -142,16 +156,22 @@ def init_sharded_state(cfg: PipelineConfig, mesh: Mesh) -> ShardedSLAMState:
 
 
 def _rank0(mesh: Mesh):
-    """(is_static_sp, static_kp) -> rank 0's values on every rank: a sum
-    in which the other ranks contribute zeros (one int32 collective)."""
+    """(is_static_sp, static_kp, heat or None) -> rank 0's values on every
+    rank: a sum in which the other ranks contribute zeros (one int32
+    collective; the f32 heat travels as its bit pattern)."""
 
-    def agree(static_sp: Tensor, static_kp: Tensor):
-        n = static_sp.shape[0]
-        mine = torch.cat([static_sp, static_kp]).to(torch.int32)
+    def agree(static_sp: Tensor, static_kp: Tensor, heat=None):
+        n, k = static_sp.shape[0], static_kp.shape[0]
+        parts = [static_sp.to(torch.int32), static_kp.to(torch.int32)]
+        if heat is not None:
+            parts.append(heat.reshape(-1).view(torch.int32))
+        mine = torch.cat(parts)
         if mesh.axis_index:
             mine = torch.zeros_like(mine)
-        both = psum(mine, mesh) > 0
-        return both[:n], both[n:]
+        got = psum(mine, mesh)
+        heat0 = None if heat is None else \
+            got[n + k:].view(torch.float32).reshape(heat.shape)
+        return got[:n] > 0, got[n:n + k] > 0, heat0
 
     return agree
 
@@ -259,6 +279,13 @@ def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
                 surfels, nb_loc, nb_vis, frame, tps.labels, plane_depth,
                 pose.R, pose.t, stamp, cam, cfg.fusion, cfg.conf_thresh,
                 mesh)
+            if cfg.fusion.freeze_on_tracking_loss and cfg.enable_icp:
+                # replicated predicate: icp.valid comes from the summed
+                # system, the total from one more int32 sum
+                keep = icp_valid | (psum(nb_loc, mesh) == 0)
+                new_surfels, nb_live, nb_vis_new = where_tree(
+                    keep, (new_surfels, nb_live, nb_vis_new),
+                    (surfels, nb_loc, nb_vis))
             tot = psum(torch.stack([nb_live, nb_vis_new]), mesh)
 
         # keyframe snapshot on its owner rank (step 14)

@@ -16,9 +16,13 @@ Moving-object detection (`mod.enabled`, with the person detector when
 out of VO, ICP, fusion and the local map. Ferns (`ferns.enabled`) look
 each frame up among the keyframes and store new ones; loop closure
 (`enable_loop_closure`) then relocalizes a revisit against its keyframe
-and deforms the map. The options measured and rejected in the JAX package
-are refused. Each stage runs under a `torch.profiler.record_function`
-range named "ssf.<stage>", which `tools/profile_frame.py` reads.
+and deforms the map. The default-off options run as in the JAX package:
+temporal heat for MOD (`mod.temporal_heat`), and two protections against
+tracking loss on frames whose ICP was gate-rejected against a live model
+(`fusion.freeze_on_tracking_loss` keeps the whole model,
+`fusion.insert_requires_icp` only skips insertion), both selects on the
+device. Each stage runs under a `torch.profiler.record_function` range
+named "ssf.<stage>", which `tools/profile_frame.py` reads.
 
 One step needs the host: with loop closure on, the frame step reads the
 fern gate once per frame and runs `close_global_loop` only on a frame
@@ -118,23 +122,8 @@ class FrameOutput(NamedTuple):
     lc_accepted: Optional[Tensor] = None  # () bool
 
 
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise for the options the port does not run: temporal heat, the
-    whole-update freeze and the insertion gate were measured and rejected
-    in the JAX package."""
-    off = {
-        "mod.temporal_heat": cfg.mod.enabled and cfg.mod.temporal_heat,
-        "fusion.freeze_on_tracking_loss": cfg.fusion.freeze_on_tracking_loss,
-        "fusion.insert_requires_icp": cfg.fusion.insert_requires_icp,
-    }
-    on = [k for k, v in off.items() if v]
-    if on:
-        raise NotImplementedError(f"not ported: {', '.join(on)}")
-
-
 def init_state(cfg: PipelineConfig,
                device: str | torch.device = "cuda") -> SLAMState:
-    check_supported(cfg)
     dev = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=dev)
     model = ModelState(
@@ -313,7 +302,8 @@ def motion_and_vo(rgb: Tensor, fe: FrontEnd, pose: Pose,
                   agree=None) -> MotionVO:
     """Steps 7-8 of the frame step: moving-object detection and sparse
     feature VO. `agree`, if given, maps MOD's (is_static_sp, static_kp)
-    to the values every rank of a sharded step uses."""
+    (and with temporal heat the new heat map) to the values every rank of
+    a sharded step uses."""
     dev = rgb.device
     cam = cfg.cam
     frame = fe.frame
@@ -335,8 +325,12 @@ def motion_and_vo(rgb: Tensor, fe: FrontEnd, pose: Pose,
                 gray, fe.fdepth, mod_prev, kp, frame, fe.tps, cam, cfg.tps,
                 cfg.mod, detector=detector)
             if agree is not None:
-                is_static_sp, static_kp = agree(is_static_sp, static_kp)
+                is_static_sp, static_kp, heat = agree(
+                    is_static_sp, static_kp,
+                    mod_prev.heat if cfg.mod.temporal_heat else None)
                 mod_prev = mod_prev._replace(kp_valid=static_kp)
+                if heat is not None:
+                    mod_prev = mod_prev._replace(heat=heat)
             # dynamic superpixels are kept out of fusion, ICP and VO
             frame = frame._replace(confidences=torch.where(
                 is_static_sp, frame.confidences,
@@ -371,9 +365,7 @@ def reset_map_if(accepted: Tensor, kp, fdepth: Tensor, pose: Pose,
     (a masked device update)."""
     reset_map = vo_ops.reset_local_map(kp, fdepth, pose.R, pose.t, cfg.cam,
                                        cfg.vo.local_map_capacity)
-    return vo_ops.LocalMap(*(
-        torch.where(accepted.reshape((1,) * a.ndim), a, b)
-        for a, b in zip(reset_map, lmap)))
+    return fusion_ops.where_tree(accepted, reset_map, lmap)
 
 
 def update_local_map(mv: MotionVO, fdepth: Tensor, labels: Tensor,
@@ -397,7 +389,6 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     counts (scaled by cfg.depth_scale) or float32 metres (0 invalid), as
     numpy arrays or tensors. Integer inputs are converted on the device.
     Returns (new_state, outputs)."""
-    check_supported(cfg)
     dev = state.stamp.device
     rgb, depth = frame_inputs(rgb, depth, cfg, dev)
 
@@ -471,12 +462,25 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     # 12. local-map maintenance with the final fused pose
     lmap = update_local_map(mv, fdepth, tps.labels, pose, lmap, cfg)
 
-    # 13. model update / bootstrap
+    # 13. model update / bootstrap. Two default-off protections against
+    # tracking loss, for frames whose ICP was gate-rejected against a live
+    # model (the pose is VO-only and may drift): insert_requires_icp
+    # inserts no new surfels while fusion, visibility and filtering stay
+    # live; freeze_on_tracking_loss keeps the whole model and zeroes the
+    # stats. Both are selects on the device, no host wait.
+    model_in = state.model._replace(surfels=model_surfels)
+    icp_ok = icp.valid | (state.model.nb_supersurfels == 0)
+    gate_insert = cfg.fusion.insert_requires_icp and cfg.enable_icp
     with record_function("ssf.fusion"):
         model, fusion_stats = fusion_ops.update_model(
-            state.model._replace(surfels=model_surfels), frame, tps.labels,
-            plane_depth, pose.R, pose.t, cam, cfg.fusion, cfg.conf_thresh,
-            state.stamp)
+            model_in, frame, tps.labels, plane_depth, pose.R, pose.t, cam,
+            cfg.fusion, cfg.conf_thresh, state.stamp,
+            allow_insert=icp_ok if gate_insert else None)
+        if cfg.fusion.freeze_on_tracking_loss and cfg.enable_icp:
+            model, fusion_stats = fusion_ops.where_tree(
+                icp_ok, (model, fusion_stats),
+                (model_in, fusion_ops.FusionStats(*(
+                    torch.zeros_like(v) for v in fusion_stats))))
 
     # 14. new-keyframe snapshot (Ferns::addKeyFrame), masked on the device
     if use_ferns:

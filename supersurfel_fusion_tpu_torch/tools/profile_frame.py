@@ -1,7 +1,8 @@
 """Where the time of the frame step goes, on one CUDA card.
 
     python -m supersurfel_fusion_tpu_torch.tools.profile_frame \\
-        [--mod | --lc] [--frames 6] [--warmup 4] [--trace PATH.json]
+        [--mod | --lc | --train] [--frames 6] [--warmup 4] \\
+        [--trace PATH.json]
 
 Drives the default `PipelineConfig` through `SupersurfelFusion` on the
 synthetic clip; with `--mod`, bench's fr3 MOD configuration (fr3
@@ -9,7 +10,12 @@ camera, moving-object detection with the person detector's committed
 weights) on the synthetic dynamic clip; with `--lc`, the default
 configuration with ferns and loop closure on (`lc_config`) on the revisit
 clip, whose frames 0-16 hold no closure (the closure frame is timed by
-`chip_smoke.py`). Then it prints:
+`chip_smoke.py`); with `--train`, steps of the person detector's trainer
+(`tools/train_person_detector.py`) on the committed labels
+(`artifacts/mod_boxes_train.npz`, batch 8, the first epoch's batches;
+its ranges are "ssf.train_*"), each step counted as a frame below, and
+also timed as the trainer times it (CUDA events between unsynced steps).
+Then it prints:
 
 * the card's name and power limit (nvidia-smi);
 * the kernel launches per frame;
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import itertools
 import json
 import subprocess
 import time
@@ -96,7 +103,8 @@ def host_syncs(step) -> list:
         if "synchroniz" not in str(message):
             return
         ours = [f for f in traceback.extract_stack()
-                if f.filename.startswith(pkg) and "tools" not in f.filename]
+                if f.filename.startswith(pkg)
+                and not f.filename.endswith("profile_frame.py")]
         key = (f"{Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours
                else f"{Path(filename).name}:{lineno}")
         where[key] = where.get(key, 0) + 1
@@ -132,6 +140,32 @@ def lc_config(min_frame_gap: int = 8) -> PipelineConfig:
                                             min_frame_gap=min_frame_gap))
 
 
+def train_step():
+    """step() running one training step of the person detector on the
+    card: the committed labels, batch 8, the first epoch's batches in the
+    trainer's order (repeated), from the seeded init."""
+    from supersurfel_fusion_tpu_torch.models.person_detector import (
+        init_params,
+    )
+    from supersurfel_fusion_tpu_torch.tools import train_person_detector as tt
+
+    data = Path(__file__).resolve().parents[2] / "artifacts" \
+        / "mod_boxes_train.npz"
+    g, d, b, c, _ = tt.load_labels(str(data))
+    labels = tt.prepare(g, d, b, c, "cuda")
+    trainer = tt.Trainer(init_params(), tt.schedule_steps(len(c), 8, 30),
+                         3e-4, "cuda")
+    order, plan = next(tt.epochs_plan(c, 8, 1, False))
+    order = torch.from_numpy(order).cuda()
+    it = itertools.cycle(plan)
+
+    def step():
+        k, flip = next(it)
+        trainer.step(*labels.batch(order[k:k + 8], flip))
+
+    return step
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -139,6 +173,8 @@ def main(argv=None) -> int:
                       help="the fr3 MOD configuration on the dynamic clip")
     mode.add_argument("--lc", action="store_true",
                       help="ferns and loop closure on, on the revisit clip")
+    mode.add_argument("--train", action="store_true",
+                      help="the person detector's training steps")
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--trace", default="")
@@ -152,7 +188,9 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
     n = args.warmup + 2 * args.frames + 1
-    if args.mod:
+    if args.train:
+        name, step = "detector training, batch 8", train_step()
+    elif args.mod:
         name, cfg = "fr3 MOD, dynamic clip", mod_config()
         clip = synthetic.dynamic_frames(cfg.cam, n)
     elif args.lc:
@@ -165,12 +203,13 @@ def main(argv=None) -> int:
         name, cfg = "default", PipelineConfig()
         clip = synthetic.frames(cfg.cam, n)
     print(f"config: {name}", flush=True)
-    slam = SupersurfelFusion(cfg, device="cuda")
-    it = iter(enumerate(clip))
+    if not args.train:
+        slam = SupersurfelFusion(cfg, device="cuda")
+        it = iter(enumerate(clip))
 
-    def step():
-        k, frame = next(it)
-        slam.process(frame[0], frame[1], timestamp=float(k))
+        def step():
+            k, frame = next(it)
+            slam.process(frame[0], frame[1], timestamp=float(k))
 
     for _ in range(args.warmup):
         step()
@@ -185,6 +224,20 @@ def main(argv=None) -> int:
     print(f"ms/frame (host clock, synced, no profiler): mean "
           f"{np.mean(host_ms):.2f} median {np.median(host_ms):.2f} "
           f"min {np.min(host_ms):.2f} over {args.frames} frames", flush=True)
+    event_ms = []
+    if args.train:
+        # the trainer's own timing: CUDA events between unsynced steps
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(args.frames + 1)]
+        events[0].record()
+        for e in events[1:]:
+            step()
+            e.record()
+        torch.cuda.synchronize()
+        event_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        print(f"ms/step between CUDA events, unsynced: median "
+              f"{np.median(event_ms):.2f} p90 "
+              f"{np.percentile(event_ms, 90):.2f}", flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -249,8 +302,11 @@ def main(argv=None) -> int:
 
     mod = next((e for e in stages if e.key == "ssf.mod"), None)
     summary = {"config": ("fr3_mod" if args.mod
-                          else "loop_closure" if args.lc else "default"),
+                          else "loop_closure" if args.lc
+                          else "train" if args.train else "default"),
                "ms_per_frame_synced": float(np.mean(host_ms)),
+               "ms_per_step_events_unsynced":
+                   float(np.median(event_ms)) if event_ms else None,
                "device_busy_ms_per_frame": busy_us / per / 1e3,
                "device_busy_share": busy_us / wall_us,
                "kernel_launches_per_frame": n_launch,

@@ -219,10 +219,124 @@ def test_first_frame_marks_nothing_without_persons():
     np.testing.assert_array_equal(kt.numpy(), np.asarray(ins[2].valid))
 
 
-def test_temporal_heat_is_refused():
-    ins, prev, _, _ = mod_sequence(False)[1]
-    cfg = mod_config(tcfg, False)
-    with pytest.raises(NotImplementedError, match="temporal_heat"):
-        tmotion.detect_motion(*_port_args(ins, prev), cfg.cam, cfg.tps,
-                              tcfg.MODConfig(enabled=True,
-                                             temporal_heat=True))
+def _heat_cases():
+    """The JAX package's heat tests (tests/test_motion.py): fresh evidence
+    at one cell then 25 frames without (identity motion, decay 0.85), and
+    a 32 px pan (decay 0.95) of a hot cell; plus a rotating, scaling
+    motion and a failed warp. Each a list of (prev heat, fresh, a, b, tx,
+    ty, warp_ok) steps; a None heat continues from the previous step."""
+    gh, gw = 6, 8
+    fresh = np.zeros((gh, gw), bool)
+    fresh[2, 3] = True
+    none = np.zeros((gh, gw), bool)
+    zero = np.zeros((gh, gw), np.float32)
+    ident = (1.0, 0.0, 0.0, 0.0)
+    hot = zero.copy()
+    hot[3, 2] = 1.0
+    warm = np.random.default_rng(5).random((gh, gw)).astype(np.float32)
+    return {
+        "persistence": (0.85, [(zero, fresh, *ident, True)]
+                        + [(None, none, *ident, True)] * 25),
+        "pan": (0.95, [(hot, none, 1.0, 0.0, 32.0, 0.0, True)]),
+        "rotate_scale": (0.85, [(warm, fresh, 0.97, 0.05, 5.5, -3.25, True),
+                                (None, none, 1.02, -0.03, -7.0, 2.0, True)]),
+        "no_warp": (0.85, [(warm, fresh, 0.9, 0.2, 30.0, 10.0, False)]),
+    }
+
+
+@pytest.mark.parametrize("case", ["persistence", "pan", "rotate_scale",
+                                  "no_warp"])
+def test_heat_update_matches_jax(case):
+    """`heat_update` step by step against JAX: the marks exact, the heat
+    within 1e-6; the persistence case keeps its cell 5-9 frames, the pan
+    moves the heat by 2 cells, as the JAX package's own tests require."""
+    decay, steps = _heat_cases()[case]
+    jc = jcfg.MODConfig(temporal_heat=True, heat_decay=decay,
+                        heat_thresh=0.3)
+    tc = tcfg.MODConfig(temporal_heat=True, heat_decay=decay,
+                        heat_thresh=0.3)
+    marks = []
+    hj = ht = None
+    for heat, fresh, a, b, tx, ty, ok in steps:
+        if heat is not None:
+            hj, ht = jnp.asarray(heat), _t(heat)
+        mj, hj = jmotion.heat_update(hj, jnp.asarray(fresh), a, b, tx, ty,
+                                     ok, 16, jc)
+        mt, ht = tmotion.heat_update(ht, _t(fresh), a, b, tx, ty, ok, 16,
+                                     tc)
+        np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+        np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=0,
+                                   atol=1e-6)
+        marks.append(mt.numpy())
+    if case == "persistence":
+        n = next(i for i, m in enumerate(marks[1:]) if not m[2, 3])
+        assert 5 <= n <= 9 and not marks[-1].any()
+    if case == "pan":
+        assert marks[0][3, 4] and not marks[0][3, 2]
+
+
+@functools.lru_cache(maxsize=None)
+def heat_sequence(n: int = 6):
+    """JAX `detect_motion` with temporal heat over the first n dynamic
+    frames (combined path: the person boxes seed the heat), each from
+    JAX's previous context."""
+    cfg = mod_config(jcfg, True)
+    cfg = dataclasses.replace(cfg, mod=dataclasses.replace(
+        cfg.mod, temporal_heat=True))
+    params = jpd.load_params(WEIGHTS)
+    seq = mod_sequence(True, n)
+    prev = seq[0][1]
+    out = []
+    for ins, _, _, _ in seq:
+        res = jax.tree.map(np.asarray, _jax_detect(
+            *ins[:2], prev, *ins[2:], params, cfg))
+        out.append((ins, prev, res))
+        prev = res[2]
+    return out
+
+
+def test_detect_motion_with_temporal_heat_matches_jax(monkeypatch):
+    """`detect_motion` with `mod.temporal_heat` (combined path) over six
+    dynamic frames, each from JAX's previous context: is_static_sp and
+    static_kp exact; the heat keeps superpixels dynamic that the frame's
+    own cues no longer mark.
+
+    The carried heat is within 1e-6 of JAX's `heat_update` on the port's
+    own inputs, and within 1e-5 of JAX's `detect_motion`: the heat is
+    warped by the camera-motion similarity, whose tx and ty the two
+    packages fit up to 1e-3 px apart (the recorded tolerance of
+    `flow.estimate_similarity_ransac`, ROADMAP Queue 3), and a heat map's
+    slope is at most 1/16 per pixel."""
+    cfg = mod_config(tcfg, True)
+    mod = dataclasses.replace(cfg.mod, temporal_heat=True)
+    jmod = dataclasses.replace(mod_config(jcfg, True).mod,
+                               temporal_heat=True)
+    det = convert.detector_from_numpy(jpd.load_params(WEIGHTS))
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return heat_update(*args)
+
+    heat_update = tmotion.heat_update
+    monkeypatch.setattr(tmotion, "heat_update", spy)
+    n_kept = 0
+    for k, (ins, prev, (sj, kj, pj)) in enumerate(heat_sequence()):
+        args = _port_args(ins, prev)
+        st, kt, pt = tmotion.detect_motion(*args, cfg.cam, cfg.tps, mod,
+                                           detector=det)
+        np.testing.assert_array_equal(st.numpy(), sj, err_msg=str(k))
+        np.testing.assert_array_equal(kt.numpy(), kj, err_msg=str(k))
+        np.testing.assert_allclose(pt.heat.numpy(), pj.heat, rtol=0,
+                                   atol=1e-5, err_msg=str(k))
+        ph, fresh, a, b, tx, ty, ok, cs, _ = calls[-1]
+        _, hj = jmotion.heat_update(
+            jnp.asarray(ph.numpy()), jnp.asarray(fresh.numpy()),
+            *(jnp.asarray(v.numpy()) for v in (a, b, tx, ty, ok)), cs, jmod)
+        np.testing.assert_allclose(pt.heat.numpy(), np.asarray(hj), rtol=0,
+                                   atol=1e-6, err_msg=str(k))
+        # the same input without the heat
+        s_off, _, _ = tmotion.detect_motion(*args, cfg.cam, cfg.tps,
+                                            cfg.mod, detector=det)
+        n_kept += int((~st & s_off).sum())
+    assert len(calls) == 6 and n_kept > 0

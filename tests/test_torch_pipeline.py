@@ -168,18 +168,25 @@ def test_helpers_need_a_gpu_unless_asked_for_cpu(monkeypatch):
 
 
 def test_unported_options_are_refused():
-    """The options measured and rejected in the JAX package are refused;
-    ferns and loop closure run."""
+    """Only the sharded step refuses an option: the insertion gate, which
+    the JAX package's sharded step lacks too. The single-device step takes
+    temporal heat, the whole-update freeze and the insertion gate (their
+    parity: test_torch_pipeline_options.py); ferns and loop closure run."""
+    from supersurfel_fusion_tpu_torch.parallel import pipeline_sharded
+
     base = small_config(tcfg)
-    mod = tcfg.MODConfig(enabled=True, temporal_heat=True)
-    for cfg in (dataclasses.replace(base, mod=mod),
-                dataclasses.replace(base, fusion=tcfg.FusionConfig(
-                    freeze_on_tracking_loss=True)),
-                dataclasses.replace(base, fusion=tcfg.FusionConfig(
-                    insert_requires_icp=True))):
-        with pytest.raises(NotImplementedError):
-            tpipe.init_state(cfg, device="cpu")
-    for cfg in (dataclasses.replace(base, enable_loop_closure=True),
+    gate = dataclasses.replace(base, fusion=tcfg.FusionConfig(
+        insert_requires_icp=True))
+    freeze = dataclasses.replace(base, fusion=tcfg.FusionConfig(
+        freeze_on_tracking_loss=True))
+    heat = dataclasses.replace(base, mod=tcfg.MODConfig(
+        enabled=True, temporal_heat=True))
+    with pytest.raises(NotImplementedError, match="insert_requires_icp"):
+        pipeline_sharded.check_supported(gate)
+    for cfg in (heat, freeze):
+        pipeline_sharded.check_supported(cfg)
+    for cfg in (heat, freeze, gate,
+                dataclasses.replace(base, enable_loop_closure=True),
                 dataclasses.replace(base,
                                     ferns=tcfg.FernsConfig(enabled=True))):
         assert int(tpipe.init_state(cfg, device="cpu").lc_count) == 0

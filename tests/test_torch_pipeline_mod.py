@@ -17,6 +17,9 @@ from supersurfel_fusion_tpu_torch import config as tcfg
 from supersurfel_fusion_tpu_torch import convert, synthetic
 from supersurfel_fusion_tpu_torch import pipeline as tpipe
 from supersurfel_fusion_tpu_torch.ops.features import keypoint_capacity
+from supersurfel_fusion_tpu_torch.parallel.pipeline_sharded import (
+    check_supported as check_sharded,
+)
 
 from test_torch_motion import MOVER_STEP, WEIGHTS, mod_config
 from test_torch_pipeline import _rot_angle, small_config
@@ -91,12 +94,22 @@ def test_mod_options_of_the_entry_points():
                              weights_path=WEIGHTS + ".absent")
     with pytest.raises(FileNotFoundError):
         tpipe.init_state(dataclasses.replace(base, mod=missing), device="cpu")
-    # the refused options
+    # the default-off options run (their parity:
+    # test_torch_pipeline_options.py); the sharded step refuses the
+    # insertion gate, which the JAX package's sharded step lacks
     for kw in (dict(mod=tcfg.MODConfig(enabled=True, temporal_heat=True)),
                dict(fusion=tcfg.FusionConfig(freeze_on_tracking_loss=True)),
                dict(fusion=tcfg.FusionConfig(insert_requires_icp=True))):
-        with pytest.raises(NotImplementedError):
-            tpipe.init_state(dataclasses.replace(base, **kw), device="cpu")
+        cfg = dataclasses.replace(base, **kw)
+        s = tpipe.init_state(cfg, device="cpu")
+        s, out = tpipe.process_frame(s, *synthetic.frames(cfg.cam, 1)[0][:2],
+                                     cfg)
+        assert int(out.nb_supersurfels) > 0
+        if cfg.fusion.insert_requires_icp:
+            with pytest.raises(NotImplementedError):
+                check_sharded(cfg)
+        else:
+            check_sharded(cfg)
 
 
 def test_runner_warns_past_max_frames():

@@ -167,3 +167,16 @@ def pipeline_steps(mesh, cfg, frames, jax_states) -> dict:
     return {"carried": carried, "free": free,
             "nb_local": int(st.model.nb_local),
             "keyframes": int(st.kf_store.db.count)}
+
+
+def rank0_agreement(mesh) -> dict:
+    """The sharded step's MOD agreement (`pipeline_sharded._rank0`): each
+    rank offers its own decision and heat, drawn from a seed per rank."""
+    rng = np.random.default_rng(10 + mesh.axis_index)
+    sp = T(rng.random(48) < 0.5)
+    kp = T(rng.random(20) < 0.5)
+    heat = T(rng.random((6, 8)).astype(np.float32))
+    got_sp, got_kp, got_heat = psh._rank0(mesh)(sp, kp, heat)
+    return {"mine_sp": _np(sp), "mine_kp": _np(kp), "mine_heat": _np(heat),
+            "static_sp": _np(got_sp), "static_kp": _np(got_kp),
+            "heat": _np(got_heat)}
