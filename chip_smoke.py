@@ -36,9 +36,14 @@ JAX, and:
    fern/loop-closure stage, host waits, memory; then the closure frame on
    the plain CPU path from the card's state, and `optimise` on the CPU
    from the card's inputs;
-9. runner phase: a TUM-format directory of synthetic frames through
-   `apps.run_benchmark.main` on the card, with and without
-   `--loop-closure`: the JSON line, the trajectory file, the ATE;
+9. runner phase: builds the port's native frame loader
+   (`csrc/tum_loader.cpp`, g++, pthread only) and fails if it does not
+   build; times decoding a (rgb, depth) 640x480 pair with it and with
+   PIL on the same files (frames equal); then a TUM-format directory of
+   synthetic frames through `apps.run_benchmark.main` on the card, with
+   and without `--loop-closure`: the JSON line (which must say
+   `"loader": "native"`), the fps with the prefetcher, the trajectory
+   file, the ATE;
 10. live phase: the port's feeder (a subprocess) writes the 30-frame
    static clip into a watch directory at 30 fps while `apps.run_live
    --watch` runs on the card: every frame once and in stamp order, the
@@ -58,18 +63,22 @@ JAX, and:
    on the static clip whose third frame has inverted colours, so that ICP
    is gate-rejected there (the model kept, nothing inserted), and
    `mod.temporal_heat` on the fr3 MOD configuration's dynamic clip;
-13. collect phase: the dynamic clip written as a TUM sequence through the
+13. nb_samples phase: the default configuration with a 32-hypothesis
+   RANSAC plane table (`TPSConfig(nb_samples=32)`, drawn as JAX draws
+   it) through `SupersurfelFusion`, 3 frames on the card against the
+   plain CPU path: both TPS kernels launched, poses within 2 mm;
+14. collect phase: the dynamic clip written as a TUM sequence through the
    trainer's `--collect` on the card: the label file's layout, the TPS
    launches, and the boxes against the mover's known image rectangle;
-14. training phase: the person detector's trainer
+15. training phase: the person detector's trainer
    (`tools/train_person_detector.py`) at full width on the committed
    labels: the first steps on the card against the plain CPU path from
-   one seeded init, then the committed weights' own command (716 frames
+   `init_params()` (JAX's initial weights), then the committed weights' own command (716 frames
    at 640x480, batch 8, 30 epochs): ms per step, steps and frames per
    second, wall time, peak memory, the loss of every epoch against a band
    set from CPU runs, held-out recall and precision beside the committed
    weights'; then the detector phase again with the card-trained weights;
-15. prints the kernel table as one JSON line (launches summed over every
+16. prints the kernel table as one JSON line (launches summed over every
    pipeline phase and every rank) and, last,
    {"ok": true, "device": {...}}.
 
@@ -85,6 +94,7 @@ import shutil
 import subprocess
 import sys
 import time
+
 import numpy as np
 
 # Total wall-time budget of the run, cold build included (seconds).
@@ -161,6 +171,13 @@ SHARD_MOD_FRAMES = 4
 # temporal heat on the fr3 MOD configuration's dynamic clip
 OPT_FRAMES = 3
 OPT_POSE_MAX = 2e-3
+# the nb_samples phase: the default configuration with a RANSAC plane
+# table of 32 hypotheses (`TPSConfig.nb_samples`; the default draws 16),
+# 3 frames through `SupersurfelFusion` on the card and on the plain CPU
+# path (poses within 2 mm)
+NB_SAMPLES = 32
+NB_FRAMES = 3
+NB_POSE_MAX = 2e-3
 # the collect phase: the dynamic clip as a TUM sequence through the
 # trainer's --collect (simple MOD path, fr3 camera) on the card; a label
 # box hits the mover where its IoU with the mover's image rectangle
@@ -171,7 +188,7 @@ COLLECT_HIT_SHARE = 0.5
 # the training phase: the committed weights' own command
 # (artifacts/run_exp5.sh: 716 fr3 frames at 640x480, batch 8, 30 epochs,
 # lr 3e-4, no label filter, no augmentation); the card against the plain
-# CPU path over the first steps from one seeded init (cuDNN asked for
+# CPU path over the first steps from `init_params()` (cuDNN asked for
 # deterministic algorithms): losses within 1e-4 relative, weights within
 # 1e-4 (the port against JAX on the CPU: 1.4e-5 after 8 steps)
 TRAIN_DATA = "artifacts/mod_boxes_train.npz"
@@ -185,9 +202,10 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-4
 # the last epoch's mean loss, from CPU runs of the same command made
 # before the first chip run (PERF.md): JAX from its own init 2.8471
-# (first epoch 4.2315), the port from its seeded init 2.7742 (4.2091); the
-# band is their range widened by 0.1 (the epoch-to-epoch spread over the
-# last ten epochs is about 0.06)
+# (first epoch 4.2315), the port from the torch-drawn init it had before
+# it drew JAX's 2.7742 (4.2091); the band is their range widened by 0.1
+# (the epoch-to-epoch spread over the last ten epochs is about 0.06). The
+# port now starts from JAX's init (`utils/prng.py`)
 TRAIN_FINAL_LOSS = (2.67, 2.95)
 H100_HBM_BPS = 3.35e12
 H100_FP32_FLOPS = 67e12
@@ -197,6 +215,8 @@ H100_FP32_FLOPS = 67e12
 EARLIER_US = {"tps_iteration": 4 * 8.30, "tps_merge": 14.55}
 
 _T0 = time.time()
+# the card's name and power limit as nvidia-smi gives them (header())
+CARD = "unknown card"
 
 
 def log(msg: str) -> None:
@@ -270,7 +290,9 @@ def header():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
@@ -1066,16 +1088,23 @@ def runner_phase(dev):
 
     clip = synthetic.frames(PipelineConfig().cam, RUNNER_FRAMES)
     launches = {k: 0 for k in tps_cuda.launch_counts}
+    t0 = time.time()
     try:
-        native_loader.build_library()
-        log("  native TUM loader built")
+        lib = native_loader.build_library()
+        built = True
+        log(f"  native TUM loader built from "
+            f"{os.path.relpath(native_loader.SOURCE)} in "
+            f"{time.time() - t0:.2f} s: {lib.name}")
     except ImportError as e:
-        log(f"  native TUM loader unavailable, the runner decodes with PIL: "
-            f"{str(e).strip()[-300:]}")
+        built = False
+        log(f"  native TUM loader build failed: {str(e).strip()[-300:]}")
+    check(built, "the native TUM loader builds (g++, pthread only)")
+    fps = {}
     with tempfile.TemporaryDirectory() as tmp:
         seq = os.path.join(tmp, "rgbd_dataset_freiburg1_synthetic")
         stamps = synthetic.write_tum_sequence(seq, clip)
         gt = read_trajectory_file(os.path.join(seq, "groundtruth.txt"))
+        decode = decode_times(seq)
         for lc in (True, False):
             out = os.path.join(tmp, f"estimated_{int(lc)}.txt")
             argv = ["--dataset", seq, "--out", out, "--quiet"] \
@@ -1106,9 +1135,49 @@ def runner_phase(dev):
             check(("lc_count" in res) == lc
                   and (not lc or res["keyframes"] >= 1),
                   "runner: loop-closure fields exactly with --loop-closure")
+            check(res["loader"] == "native", "runner: frames decoded by the "
+                  "native loader (\"loader\": \"native\")")
+            fps["lc" if lc else "plain"] = res["fps"]
     check(launches["tps_iteration"] == 20 * RUNNER_FRAMES,
           "runner: 10 tps_iteration launches per frame")
-    return launches, res["loader"]
+    log(f"  runner fps with the native prefetcher ({CARD}): with "
+        f"--loop-closure {fps['lc']}, without {fps['plain']}")
+    return launches, dict(decode, fps_lc=fps["lc"], fps=fps["plain"])
+
+
+def decode_times(seq: str) -> dict:
+    """ms per (rgb, depth) pair of the 640x480 frames in the TUM directory
+    `seq`: the native decoder against PIL (as `io/tum.py` decodes) on the
+    same files, 3 passes each, median over pairs and passes; both decoders'
+    frames bit for bit equal."""
+    from PIL import Image
+
+    from supersurfel_fusion_tpu_torch.io import native_loader
+    from supersurfel_fusion_tpu_torch.io.tum import TUMDataset
+
+    ds = TUMDataset(seq)
+    pairs = [(os.path.join(seq, a.rgb_file), os.path.join(seq, a.depth_file))
+             for a in ds.associations]
+    ms = {"native": [], "pil": []}
+    equal = True
+    for _ in range(3):
+        for rgb_path, depth_path in pairs:
+            t0 = time.perf_counter()
+            nat = native_loader.decode_pair(rgb_path, depth_path)
+            t1 = time.perf_counter()
+            pil = (np.asarray(Image.open(rgb_path), dtype=np.uint8),
+                   np.asarray(Image.open(depth_path)))
+            t2 = time.perf_counter()
+            ms["native"].append((t1 - t0) * 1e3)
+            ms["pil"].append((t2 - t1) * 1e3)
+            equal &= (np.array_equal(nat[0], pil[0])
+                      and np.array_equal(nat[1], pil[1]))
+    out = {f"decode_{k}_ms": float(np.median(v)) for k, v in ms.items()}
+    log(f"  decode per (rgb, depth) 640x480 pair ({CARD}; host CPU): native "
+        f"median {out['decode_native_ms']:.3f} ms, PIL median "
+        f"{out['decode_pil_ms']:.3f} ms ({len(pairs)} pairs x 3 passes)")
+    check(equal, "native decode equals PIL's on every pair")
+    return out
 
 
 
@@ -1627,6 +1696,68 @@ def options_phase(dev):
     return launches, summary
 
 
+def nb_samples_phase(dev):
+    """The default frame step with a 32-hypothesis RANSAC plane table
+    (drawn as JAX's `jax.random.uniform(PRNGKey(1234), (32, 3, 2))`)
+    through `SupersurfelFusion` on the card against the plain CPU path."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.config import PipelineConfig, TPSConfig
+    from supersurfel_fusion_tpu_torch.ops import tps, tps_cuda
+    from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
+
+    cfg = PipelineConfig(tps=TPSConfig(nb_samples=NB_SAMPLES))
+    cs = cfg.tps.cell_size
+    clip = synthetic.frames(cfg.cam, NB_FRAMES)
+    drawn = []
+    draw = tps.ransac_offsets
+
+    def spy(cell, n):
+        drawn.append(n)
+        return draw(cell, n)
+
+    tps.ransac_offsets = spy
+    runs = {}
+    try:
+        for where in (dev, "cpu"):
+            slam = SupersurfelFusion(cfg, device=where)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                tps_cuda.reset_launch_counts()
+            t0 = time.time()
+            outs = [slam.process(rgb, depth, timestamp=float(k))
+                    for k, (rgb, depth, _) in enumerate(clip)]
+            if where != "cpu":
+                torch.cuda.synchronize()
+                launches = dict(tps_cuda.launch_counts)
+            runs[str(where)] = (np.array(slam.trajectory), outs,
+                                time.time() - t0)
+    finally:
+        tps.ransac_offsets = draw
+    offs = draw(cs, NB_SAMPLES)
+    (tg, og, sg), (tc, oc, sc) = runs[str(dev)], runs["cpu"]
+    dt = float(np.abs(tg[:, :3] - tc[:, :3]).max())
+    gt = synthetic.trajectory(NB_FRAMES)
+    err = np.linalg.norm(tg[:, :3] - np.array([t for _, t in gt]), axis=1)
+    icp = [(bool(a.icp_valid), bool(b.icp_valid)) for a, b in zip(og, oc)]
+    log(f"  nb_samples {NB_SAMPLES}: tables drawn {drawn}, offsets in "
+        f"[{offs.min():.4f}, {offs.max():.4f}]; launches {launches}; card "
+        f"{sg:.2f} s, CPU {sc:.2f} s for {NB_FRAMES} frames; icp valid "
+        f"(card, CPU) {icp}; max |dt| card vs CPU {dt:.2e} m, error vs the "
+        f"known trajectory {err.max():.4f} m")
+    check(offs.shape == (NB_SAMPLES, 3, 2) and drawn == [NB_SAMPLES] * 2
+          and offs.min() >= -cs / 2 and offs.max() < cs / 2,
+          f"nb_samples: the plane init reads a {NB_SAMPLES}-row table on "
+          f"both devices")
+    check(launches["tps_iteration"] == 10 * NB_FRAMES
+          and launches["tps_merge"] == 12 * NB_FRAMES,
+          "nb_samples: both TPS kernels launched as in the default step")
+    check(bool(np.isfinite(tg).all()) and dt < NB_POSE_MAX,
+          "nb_samples: card agrees with the plain CPU path (|dt| < 2 mm)")
+    return launches, {"dt": dt, "err_max": float(err.max())}
+
+
 def _mover_rect(cam, pose, k):
     """The mover's image rectangle at frame k: its box corners
     (`synthetic.box_bounds`) projected through the camera pose."""
@@ -1733,7 +1864,7 @@ def training_phase(dev):
     log(f"  labels: {len(c)} frames {g.shape[1]}x{g.shape[2]}, "
         f"{int(c.sum())} boxes, loaded in {time.time() - t0:.2f} s")
 
-    # the card against the plain CPU path from one seeded init
+    # the card against the plain CPU path from JAX's initial weights
     init = init_params()
     n_steps = tt.schedule_steps(len(c), TRAIN_BATCH, TRAIN_EPOCHS)
     first = {}
@@ -1850,7 +1981,7 @@ def main() -> int:
     phase_done("loop-closure pipeline", t0)
 
     t0 = time.time()
-    run_launches, loader = runner_phase(dev)
+    run_launches, runner = runner_phase(dev)
     phase_done("runner", t0)
 
     t0 = time.time()
@@ -1877,6 +2008,10 @@ def main() -> int:
     phase_done("options", t0)
 
     t0 = time.time()
+    nb_launches, nbs = nb_samples_phase(dev)
+    phase_done(f"nb_samples={NB_SAMPLES}", t0)
+
+    t0 = time.time()
     col_launches, col = collect_phase(dev)
     phase_done("collect", t0)
 
@@ -1897,12 +2032,13 @@ def main() -> int:
             "source": "supersurfel_fusion_tpu_torch/csrc/tps.cu",
             "replaces": "supersurfel_fusion_tpu/ops/tps_pallas.py:381",
             # every pipeline phase: the default, MOD and loop-closure
-            # frame steps and the runner's two runs
+            # frame steps, the runner's and the live runner's runs, the
+            # sharded steps, the options, nb_samples and collect phases
             "launches": (launches[name] + mod_launches[name]
                          + lc_launches[name] + run_launches[name]
                          + live_launches[name] + sh1_launches[name]
                          + sh2_launches[name] + opt_launches[name]
-                         + col_launches[name]),
+                         + nb_launches[name] + col_launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1912,7 +2048,10 @@ def main() -> int:
         f"ms/frame steady, peak {mod['peak_mib']:.1f} MiB; loop closure: "
         f"{lc['ms_ordinary']:.2f} ms/frame ordinary, closure frame "
         f"{lc['ms_closure']:.2f} ms, peak {lc['peak_mib']:.1f} MiB; runner "
-        f"loader {loader}; live {live['fps']:.2f} fps, latency median "
+        f"native loader {runner['fps']:.2f} fps (decode "
+        f"{runner['decode_native_ms']:.2f} ms per pair, PIL "
+        f"{runner['decode_pil_ms']:.2f}); live {live['fps']:.2f} fps, "
+        f"latency median "
         f"{live['lat_median_ms']:.0f} ms, backlog {live['backlog_max']}; "
         f"sharded D=1 {sh1['ms_ordinary']:.2f} ms/frame (closure "
         f"{sh1['ms_closure']:.2f}), D=2 {sh2['ms_ordinary']:.2f} (closure "

@@ -13,9 +13,10 @@ Usage:
       [--loop-closure] [--mod [--yolo]]
 
 It runs on the CUDA card; `--cpu` runs the plain PyTorch path on the CPU,
-and nothing else selects it. PNG frames are decoded by the native loader
-(`native/tum_loader.cpp`, built with g++ on first use) ahead of the frame
-step, or with PIL where it cannot be built; the JSON line says which.
+and nothing else selects it. PNG frames are decoded by the port's native
+loader (`csrc/tum_loader.cpp`, built with g++ on first use, linking only
+pthread) ahead of the frame step, or with PIL where it cannot be built;
+the JSON line says which.
 """
 
 from __future__ import annotations

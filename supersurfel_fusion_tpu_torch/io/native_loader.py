@@ -1,15 +1,18 @@
-"""ctypes bridge to the native TUM frame loader (`native/tum_loader.cpp`).
+"""ctypes bridge to the port's native TUM frame loader (`csrc/tum_loader.cpp`).
 
-A copy of `supersurfel_fusion_tpu/io/native_loader.py` that builds the same
-source with g++ (and libdeflate) into the port's git-ignored `_build/`
-directory, keyed by the source hash, and exposes:
+A copy of `supersurfel_fusion_tpu/io/native_loader.py` for the port's own
+loader source, which inflates PNG data itself and so needs no compression
+library: g++ builds it, linking only pthread, into the port's git-ignored
+`_build/` directory, keyed by the source and flags' hash. It exposes:
 
 * `decode_pair`: synchronous PNG pair decode (drop-in for the PIL path);
 * `PrefetchingLoader`: a background thread pool decoding frames ahead of
-  the SLAM loop, so host PNG decoding overlaps the device's work.
+  the SLAM loop, so host PNG decoding overlaps the device's work. Each
+  frame is handed out once: asking again for a frame already served
+  raises IOError.
 
-Without a toolchain or libdeflate the build raises ImportError, and the
-runner falls back to decoding with PIL (`io/tum.py`).
+Without a C++ compiler the build raises ImportError, and the runner falls
+back to decoding with PIL (`io/tum.py`).
 """
 
 from __future__ import annotations
@@ -25,12 +28,17 @@ from typing import List, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "tum_loader.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tum_loader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
-LIBS = ["-ldeflate", "-lpthread"]
+LIBS = ["-lpthread"]
 
 _lib = None
+
+
+def build_command(cxx: str, out: str) -> List[str]:
+    """The compiler's argument list that builds the loader into `out`."""
+    return [cxx, *CXX_FLAGS, "-o", out, str(SOURCE), *LIBS]
 
 
 def build_library() -> Path:
@@ -51,9 +59,8 @@ def build_library() -> Path:
                                suffix=".so")
     os.close(fd)
     try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE),
-                               *LIBS], capture_output=True, text=True,
-                              timeout=300)
+        proc = subprocess.run(build_command(cxx, tmp), capture_output=True,
+                              text=True, timeout=300)
         if proc.returncode != 0:
             raise ImportError(f"native loader build failed: {proc.stderr}")
         os.replace(tmp, out)
@@ -133,6 +140,9 @@ class PrefetchingLoader:
             depth.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
             self.width, self.height,
         )
+        if ok < 0:
+            raise IOError(f"frame {idx} is out of range or was already "
+                          f"served (each frame is handed out once)")
         if not ok:
             raise IOError(f"native prefetch failed at frame {idx}")
         return rgb, depth

@@ -11,8 +11,9 @@ computes them with XLA, outside any Pallas kernel). JAX's "SAME" padding
 is asymmetric: for stride s, kernel k and size n the total pad is
 max((ceil(n/s) - 1) * s + k - n, 0) and the low side gets total // 2, so
 it is applied explicitly. The weights come from the committed `.npz`
-(HWIO, turned into OIHW). `init_params` gives the randomly initialised
-training structure (HWIO numpy arrays, as the JAX package's), and
+(HWIO, turned into OIHW). `init_params` gives the JAX package's randomly
+initialised training parameters (HWIO numpy arrays, its `jax.random`
+draws made by `utils/prng.py`), and
 `PersonDetector.forward_maps` the batched forward the trainer
 (`tools/train_person_detector.py`) differentiates.
 """
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from supersurfel_fusion_tpu_torch.device import resolve_device
+from supersurfel_fusion_tpu_torch.utils import prng
 
 Tensor = torch.Tensor
 
@@ -37,30 +39,26 @@ _STAGES = [(16, 2), (32, 2), (64, 2), (96, 2)]
 _HEAD_CH = 96
 
 
-def init_params(generator: torch.Generator | None = None,
-                in_ch: int = 2) -> dict:
-    """The randomly initialised parameter dict (numpy arrays, HWIO), with
-    the JAX package's structure and scales: He normal for the four stages,
-    0.01 for the heads, a -4 heat bias (a low prior), zero biases. Draws
-    from `generator` (default: seeded with 0); the values cannot equal
-    `jax.random`'s."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-
-    def normal(shape, scale):
-        return (torch.randn(shape, generator=generator, dtype=torch.float64)
-                * scale).to(torch.float32).numpy()
-
+def init_params(key=None, in_ch: int = 2) -> dict:
+    """The randomly initialised parameter dict (numpy arrays, HWIO): the
+    JAX package's `init_params(key, in_ch)`, draw for draw (`utils/prng.py`).
+    `key` defaults to `PRNGKey(0)`; each stage splits it once and draws its
+    He-normal weights (std sqrt(2 / (9 c_in))) from the new subkey; the
+    heads split it in three and draw at 0.01. The heat bias is -4 (a low
+    prior), the other biases zero."""
+    key = prng.PRNGKey(0) if key is None else np.asarray(key, np.uint32)
     params = {}
     c_in = in_ch
     for i, (c_out, _) in enumerate(_STAGES):
-        params[f"conv{i}_w"] = normal((3, 3, c_in, c_out),
-                                      math.sqrt(2.0 / (9 * c_in)))
+        key, k1 = prng.split(key)
+        params[f"conv{i}_w"] = (prng.normal(k1, (3, 3, c_in, c_out))
+                                * np.float32(np.sqrt(2.0 / (9 * c_in))))
         params[f"conv{i}_b"] = np.zeros((c_out,), np.float32)
         c_in = c_out
-    params["heat_w"] = normal((3, 3, _HEAD_CH, 1), 0.01)
+    key, k1, k2 = prng.split(key, 3)
+    params["heat_w"] = prng.normal(k1, (3, 3, _HEAD_CH, 1)) * np.float32(0.01)
     params["heat_b"] = np.full((1,), -4.0, np.float32)
-    params["size_w"] = normal((3, 3, _HEAD_CH, 2), 0.01)
+    params["size_w"] = prng.normal(k2, (3, 3, _HEAD_CH, 2)) * np.float32(0.01)
     params["size_b"] = np.zeros((2,), np.float32)
     return params
 

@@ -6,7 +6,7 @@ OpenCV's `estimateAffinePartial2D` and DIS optical flow):
 * `estimate_similarity_ransac`: fixed-budget RANSAC, all hypotheses from
   2-point minimal samples scored at once (ranked by spatial coverage), LSQ
   refit on the winner's inliers. The hypothesis pairs are the JAX
-  package's seeded draw (`ops/random_tables.py`).
+  package's seeded `jax.random.randint` draw (`utils/prng.py`).
 * `dense_flow`: coarse-to-fine pyramidal Lucas-Kanade with box-filtered
   structure tensors.
 
@@ -26,8 +26,8 @@ import torch.nn.functional as F
 
 from supersurfel_fusion_tpu_torch.ops.depth import shift2d
 from supersurfel_fusion_tpu_torch.ops.features import resize_bilinear
-from supersurfel_fusion_tpu_torch.ops.random_tables import similarity_pairs
 from supersurfel_fusion_tpu_torch.ops.tps import _iota
+from supersurfel_fusion_tpu_torch.utils import prng
 
 Tensor = torch.Tensor
 
@@ -62,8 +62,11 @@ def _norm2(v: Tensor) -> Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _pairs_on(n: int, device: torch.device) -> Tensor:
-    return torch.as_tensor(similarity_pairs(n), device=device).to(torch.int64)
+def _pairs_on(seed: int, n_hyp: int, n: int, device: torch.device) -> Tensor:
+    """(n_hyp, 2) int64 in [0, n): JAX's
+    `jax.random.randint(PRNGKey(seed), (n_hyp, 2), 0, n)`."""
+    pairs = prng.randint(prng.PRNGKey(seed), (n_hyp, 2), 0, n)
+    return torch.as_tensor(pairs, device=device).to(torch.int64)
 
 
 def coverage_rank(inl: Tensor, src_xy: Tensor, img_w: float, img_h: float,
@@ -88,11 +91,8 @@ def estimate_similarity_ransac(src: Tensor, dst: Tensor, ok: Tensor,
     by spatial coverage (distinct grid cells holding an inlier), with the
     raw inlier count as tiebreak, so that a compact mover cannot out-vote
     the camera motion."""
-    if n_hyp != 256 or seed != 1234:
-        raise ValueError("only the committed draw (n_hyp=256, seed=1234) "
-                         "is available")
     N = src.shape[0]
-    idx = _pairs_on(N, src.device)
+    idx = _pairs_on(seed, n_hyp, N, src.device)
     i0, i1 = idx[:, 0], idx[:, 1]
     p0, p1 = src[i0], src[i1]
     q0, q1 = dst[i0], dst[i1]

@@ -43,8 +43,8 @@ from supersurfel_fusion_tpu_torch.ops.matching import (
     gms_filter,
     match_bruteforce,
 )
-from supersurfel_fusion_tpu_torch.ops.random_tables import rigid_draw
 from supersurfel_fusion_tpu_torch.types import Pose, Supersurfels
+from supersurfel_fusion_tpu_torch.utils import prng
 from supersurfel_fusion_tpu_torch.utils.geometry import orthonormalize
 
 Tensor = torch.Tensor
@@ -139,8 +139,11 @@ def _kabsch(P: Tensor, Q: Tensor, w: Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _draw_on(device: torch.device) -> Tensor:
-    return torch.as_tensor(rigid_draw(), device=device).to(torch.int64)
+def _draw_on(seed: int, n_hyp: int, device: torch.device) -> Tensor:
+    """(n_hyp, 3) int64 in [0, 2**30): JAX's
+    `jax.random.randint(PRNGKey(seed), (n_hyp, 3), 0, 1 << 30)`."""
+    draw = prng.randint(prng.PRNGKey(seed), (n_hyp, 3), 0, 1 << 30)
+    return torch.as_tensor(draw, device=device).to(torch.int64)
 
 
 def ransac_rigid_3d(src: Tensor, dst: Tensor, ok: Tensor, n_hyp: int = 256,
@@ -155,13 +158,11 @@ def ransac_rigid_3d(src: Tensor, dst: Tensor, ok: Tensor, n_hyp: int = 256,
     draws modulo the valid count). With `src_xy` (pixel positions of the
     src points), hypotheses are ranked by spatial coverage with the raw
     inlier count as tiebreak. Returns (R, t, valid, n_in)."""
-    if n_hyp != 256 or seed != 7:
-        raise ValueError("only the committed draw (n_hyp=256, seed=7) is "
-                         "available")
     n_ok = torch.sum(ok.to(torch.int64))
     # valid-first ordering; draws restricted to the first n_ok entries
     order = torch.argsort((~ok).to(torch.int8), stable=True)
-    idx = order[_draw_on(src.device) % torch.clamp(n_ok, min=1)]
+    idx = order[_draw_on(seed, n_hyp, src.device)
+                % torch.clamp(n_ok, min=1)]
     P = src[idx]                      # (n_hyp, 3, 3)
     Q = dst[idx]
     w3 = ok[idx].to(torch.float32)

@@ -25,6 +25,7 @@ import torch
 
 from supersurfel_fusion_tpu_torch.config import TPSConfig
 from supersurfel_fusion_tpu_torch.ops.depth import shift2d
+from supersurfel_fusion_tpu_torch.utils import prng
 from supersurfel_fusion_tpu_torch.utils.geometry import inv3x3_sym, solve3x3
 
 Tensor = torch.Tensor
@@ -38,41 +39,11 @@ _PHASES = [(0, 0), (1, 1), (0, 1), (1, 0)]
 # 4-neighbour offsets in the reference's candidate order: up, left, right, down
 _NEIGH4 = [(-1, 0), (0, -1), (0, 1), (1, 0)]
 
-# The RANSAC offset table of the JAX package is drawn with
-# jax.random.uniform(jax.random.PRNGKey(1234), (16, 3, 2)). These are the
-# unit draws of that call, bit for bit (f32 repr round-trips); the offsets
-# are u * cs - cs / 2 exactly as jax.random.uniform scales them
-# (tests/test_torch_depth_tps.py holds them equal to the JAX draw).
-_RANSAC_UNIT = np.array([
-    0.8650085, 0.8059484, 0.3674245, 0.8478476, 0.14150536, 0.6290631,
-    0.77583706, 0.38186908, 0.3553958, 0.72113514, 0.81162727, 0.09966433,
-    0.6068044, 0.96188617, 0.108392715, 0.030830383, 0.454939, 0.5489943,
-    0.55569875, 0.7676666, 0.9771886, 0.5125257, 0.66380537, 0.68346655,
-    0.516346, 0.11569643, 0.7831737, 0.91594815, 0.41723263, 0.6005876,
-    0.72829485, 0.9403367, 0.6851469, 0.8715664, 0.8553091, 0.48416364,
-    0.946807, 0.09851837, 0.9792371, 0.64179695, 0.5870503, 0.07552314,
-    0.2822901, 0.24891102, 0.3901453, 0.25642562, 0.57110286, 0.067928076,
-    0.8914293, 0.13590884, 0.02246499, 0.12652278, 0.9545537, 0.8033147,
-    0.6664525, 0.58095145, 0.6583631, 0.9404501, 0.010051489, 0.7833674,
-    0.08695507, 0.17857659, 0.5420003, 0.0040712357, 0.8481549, 0.72671807,
-    0.9075062, 0.069348216, 0.02115655, 0.3907857, 0.7682861, 0.1605972,
-    0.56860673, 0.98417985, 0.10424578, 0.47655988, 0.49643028, 0.19671988,
-    0.15100598, 0.025665998, 0.09948957, 0.014556527, 0.22405863, 0.84576464,
-    0.77249265, 0.46630025, 0.69774044, 0.74200654, 0.3911785, 0.9555919,
-    0.3659842, 0.07640827, 0.8516288, 0.45316148, 0.26099765, 0.45614386,
-], dtype=np.float32).reshape(16, 3, 2)
-
-
 def ransac_offsets(cs: int, nb_samples: int) -> np.ndarray:
     """(nb_samples, 3, 2) f32 offsets in [-cs/2, cs/2): the JAX package's
     `jax.random.uniform(PRNGKey(1234), (S, 3, 2), -cs/2, cs/2)` draw."""
-    if nb_samples != _RANSAC_UNIT.shape[0]:
-        raise ValueError(
-            f"the committed RANSAC table holds {_RANSAC_UNIT.shape[0]} "
-            f"samples; nb_samples={nb_samples} has no committed draw")
-    lo = np.float32(-cs / 2.0)
-    hi = np.float32(cs / 2.0)
-    return np.maximum(lo, _RANSAC_UNIT * (hi - lo) + lo).astype(np.float32)
+    return prng.uniform(prng.PRNGKey(1234), (nb_samples, 3, 2),
+                        -cs / 2.0, cs / 2.0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -143,7 +143,7 @@ def lc_config(min_frame_gap: int = 8) -> PipelineConfig:
 def train_step():
     """step() running one training step of the person detector on the
     card: the committed labels, batch 8, the first epoch's batches in the
-    trainer's order (repeated), from the seeded init."""
+    trainer's order (repeated), from `init_params()`."""
     from supersurfel_fusion_tpu_torch.models.person_detector import (
         init_params,
     )

@@ -5,7 +5,7 @@ Run as a script, it measures what `chip_smoke.py`'s limits rest on, at
 640x480 over 30 frames of the static and dynamic clips:
 
     python tests/test_torch_clip_reference.py [--frames 30] [--out FILE]
-        [--clips static,dynamic] [--clip revisit]
+        [--clips static,dynamic] [--clip revisit] [--lockstep]
 
 * the static clip (`synthetic.frames`) with the default configuration;
 * the dynamic clip (`synthetic.dynamic_frames`) with bench's fr3 MOD
@@ -19,6 +19,12 @@ false-dynamic share (frames 2 onward); on the revisit clip the keyframes,
 the frames the loop-closure gate fires on, the accepted closures and the
 drift before and after the first one. It writes them as JSON. As a test it
 runs the same code on three frames at 256x192.
+
+With `--lockstep` (static and dynamic clips) the two packages do not run
+free: every frame both start from the JAX state carried over, so what is
+compared is one frame step's output from the same input. Per frame it
+prints the translation and rotation gaps, the share of equal superpixel
+labels, whether the ICP and VO verdicts are equal, and the surfel counts.
 """
 
 import argparse
@@ -42,10 +48,11 @@ from supersurfel_fusion_tpu import pipeline as jpipe  # noqa: E402
 from supersurfel_fusion_tpu.ops import ferns as jferns  # noqa: E402
 from supersurfel_fusion_tpu.ops.depth import bilateral_filter  # noqa: E402
 from supersurfel_fusion_tpu_torch import config as tcfg  # noqa: E402
+from supersurfel_fusion_tpu_torch import convert  # noqa: E402
 from supersurfel_fusion_tpu_torch import pipeline as tpipe  # noqa: E402
 from supersurfel_fusion_tpu_torch import synthetic  # noqa: E402
 
-from test_torch_pipeline import small_config  # noqa: E402
+from test_torch_pipeline import _rot_angle, small_config  # noqa: E402
 
 WEIGHTS = str(ROOT / "weights" / "person_detector.npz")
 
@@ -152,6 +159,40 @@ def run(package: str, clip: str, n: int, small: bool = False) -> dict:
     return res
 
 
+def lockstep(clip: str, n: int) -> dict:
+    """Both packages' frame step over one clip, each frame from the JAX
+    state carried over (not free-running). Returns the per-frame gaps."""
+    jc, tc = clip_config(jcfg, clip), clip_config(tcfg, clip)
+    frames = clip_frames(clip, tc.cam, n)
+    js = jpipe.init_state(jc)
+    rows = []
+    t0 = time.time()
+    for rgb, depth, _ in frames:
+        ts = convert.state_from_jax_numpy(jax.tree.map(np.array, js),
+                                          device="cpu")
+        js, jo = jpipe.process_frame(js, jnp.asarray(rgb), jnp.asarray(depth),
+                                     jc)
+        ts, to = tpipe.process_frame(ts, rgb, depth, tc)
+        rows.append({
+            "dt": float(np.abs(to.pose.t.numpy() - np.asarray(jo.pose.t))
+                        .max()),
+            "dR": _rot_angle(to.pose.R.numpy(), np.asarray(jo.pose.R)),
+            "labels_equal": float((to.labels.numpy()
+                                   == np.asarray(jo.labels)).mean()),
+            "icp_equal": bool(to.icp_valid) == bool(jo.icp_valid),
+            "vo_equal": bool(to.vo_valid) == bool(jo.vo_valid),
+            "nb": [int(jo.nb_supersurfels), int(to.nb_supersurfels)]})
+    return {"clip": clip, "frames": n, "lockstep": True,
+            "seconds": time.time() - t0, "rows": rows,
+            "max_dt": max(r["dt"] for r in rows),
+            "max_dR": max(r["dR"] for r in rows),
+            "min_labels_equal": min(r["labels_equal"] for r in rows),
+            "verdicts_equal": all(r["icp_equal"] and r["vo_equal"]
+                                  for r in rows),
+            "nb_differs_on": [k for k, r in enumerate(rows)
+                              if r["nb"][0] != r["nb"][1]]}
+
+
 def test_clip_reference_runs_both_packages():
     """Three dynamic frames at 256x192 through both runners. Free-running,
     the two packages part after the known fusion fault (ROADMAP Queue 3)
@@ -172,10 +213,23 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--packages", default="jax,port")
     ap.add_argument("--clips", "--clip", default="static,dynamic")
+    ap.add_argument("--lockstep", action="store_true",
+                    help="each frame from the JAX state carried over")
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     results = []
-    for clip in args.clips.split(","):
+    for clip in args.clips.split(",") if args.lockstep else ():
+        r = lockstep(clip, args.frames)
+        results.append(r)
+        print(f"lockstep {clip}, {r['frames']} frames: max |dt| "
+              f"{r['max_dt']:.3e} m, max rotation gap {r['max_dR']:.3e} rad, "
+              f"labels equal >= {r['min_labels_equal']:.4f}, ICP and VO "
+              f"verdicts equal on every frame: {r['verdicts_equal']}, "
+              f"surfel counts differ on frames {r['nb_differs_on']}, "
+              f"{r['seconds']:.1f} s", flush=True)
+        for k, row in enumerate(r["rows"]):
+            print(f"  frame {k}: {json.dumps(row)}", flush=True)
+    for clip in args.clips.split(",") if not args.lockstep else ():
         for package in args.packages.split(","):
             r = run(package, clip, args.frames)
             results.append(r)

@@ -68,12 +68,10 @@ def test_shift2d_matches_jax(dy, dx):
 
 def test_ransac_table_equals_jax_draw():
     key = jax.random.PRNGKey(1234)
-    for cs in (16, 8):
-        offs = jax.random.uniform(key, (16, 3, 2), minval=-cs / 2.0,
+    for cs, n in ((16, 16), (8, 16), (16, 4), (12, 32)):
+        offs = jax.random.uniform(key, (n, 3, 2), minval=-cs / 2.0,
                                   maxval=cs / 2.0, dtype=jnp.float32)
-        assert np.array_equal(np.asarray(offs), ttps.ransac_offsets(cs, 16))
-    with pytest.raises(ValueError):
-        ttps.ransac_offsets(16, 4)
+        assert np.array_equal(np.asarray(offs), ttps.ransac_offsets(cs, n))
 
 
 def _labels_and_stats(H, W, cs, seed):

@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the MOD's flow module (similarity
 RANSAC, warps, the SE(3) depth residual, pyramidal LK flow), the rigid 3D
-RANSAC of the depth-residual cue, and the committed `jax.random` draws, on
-seeded numpy inputs on the CPU."""
+RANSAC of the depth-residual cue, and their `jax.random` draws (made by the
+port's `utils/prng.py`), on seeded numpy inputs on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +13,6 @@ from supersurfel_fusion_tpu.ops import flow as jflow
 from supersurfel_fusion_tpu.ops import loop_closure as jlc
 from supersurfel_fusion_tpu_torch.ops import flow as tflow
 from supersurfel_fusion_tpu_torch.ops import loop_closure as tlc
-from supersurfel_fusion_tpu_torch.ops import random_tables
 
 # One intra-op thread: the suite runs in several worker processes at once,
 # and each process's OpenMP threads spinning against the others' made the
@@ -45,13 +44,15 @@ def smooth_image(H, W, seed, dx=0.0, dy=0.0):
 def test_similarity_draw_matches_jax_randint(span):
     ref = np.asarray(jax.random.randint(jax.random.PRNGKey(1234), (256, 2),
                                         0, span))
-    np.testing.assert_array_equal(random_tables.similarity_pairs(span), ref)
+    pairs = tflow._pairs_on(1234, 256, span, torch.device("cpu"))
+    np.testing.assert_array_equal(pairs.numpy(), ref)
 
 
 def test_rigid_draw_matches_jax_randint():
     ref = np.asarray(jax.random.randint(jax.random.PRNGKey(7), (256, 3), 0,
                                         1 << 30))
-    np.testing.assert_array_equal(random_tables.rigid_draw(), ref)
+    draw = tlc._draw_on(7, 256, torch.device("cpu"))
+    np.testing.assert_array_equal(draw.numpy(), ref)
 
 
 def _correspondences(seed, n=K_CAP, outliers=0.3, n_valid=220):

@@ -6,11 +6,17 @@ import contextlib
 import io
 import json
 import os
+import re
+import struct
+import threading
+import zlib
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from supersurfel_fusion_tpu.eval import trajectory as jtraj
 from supersurfel_fusion_tpu.io import export as jexport
@@ -117,8 +123,9 @@ def test_tum_reader_equals_jax(tmp_path):
 
 
 def test_native_loader_equals_pil(tmp_path):
-    """The native decoder (built with g++ from `native/tum_loader.cpp`)
-    and its prefetcher give the PIL path's frames bit for bit."""
+    """The native decoder (built with g++ from the port's
+    `csrc/tum_loader.cpp`) and its prefetcher give the PIL path's frames
+    bit for bit."""
     clip, _ = _write_sequence(tmp_path, 3)
     ds = ttum.TUMDataset(str(tmp_path))
     pairs = [(str(tmp_path / a.rgb_file), str(tmp_path / a.depth_file))
@@ -136,6 +143,204 @@ def test_native_loader_equals_pil(tmp_path):
             np.testing.assert_array_equal(one[1], clip[k][1])
     finally:
         loader.close()
+
+
+# the C++ standard library headers the loader may include: no compression
+# library (libdeflate.h, zlib.h) and nothing else outside the standard
+_STD_HEADERS = {"algorithm", "atomic", "chrono", "condition_variable",
+                "cstdint", "cstdio", "cstdlib", "cstring", "mutex", "string",
+                "thread", "unordered_map", "vector"}
+
+
+def test_native_loader_links_only_pthread():
+    """The build command links nothing but pthread and names no include or
+    library directory; the source is the port's own and includes only the
+    C++ standard library, so a machine without libdeflate builds it."""
+    cmd = native_loader.build_command("g++", "out.so")
+    assert native_loader.SOURCE.parent.name == "csrc"
+    assert native_loader.SOURCE.parents[1].name == "supersurfel_fusion_tpu_torch"
+    assert str(native_loader.SOURCE) in cmd
+    assert [a for a in cmd if a.startswith("-l")] == ["-lpthread"]
+    assert not [a for a in cmd if a.startswith(("-L", "-I", "-Wl"))]
+    text = native_loader.SOURCE.read_text()
+    includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]", text,
+                          re.M)
+    assert includes and set(includes) <= _STD_HEADERS, includes
+    assert "libdeflate" not in text and "zlib.h" not in text
+    assert native_loader.build_library().exists()
+
+
+def _png_chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _filter_rows(raw, bpp, filters):
+    """PNG-filter the rows of `raw` ((H, stride) uint8), row y with
+    filters[y % len(filters)]."""
+    out = bytearray()
+    prev = np.zeros(raw.shape[1], np.int32)
+    for y, row in enumerate(raw.astype(np.int32)):
+        f = filters[y % len(filters)]
+        a = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        b = prev
+        if f == 1:
+            row_f = row - a
+        elif f == 2:
+            row_f = row - b
+        elif f == 3:
+            row_f = row - (a + b) // 2
+        elif f == 4:
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            row_f = row - np.where((pa <= pb) & (pa <= pc), a,
+                                   np.where(pb <= pc, b, c))
+        else:
+            row_f = row
+        out.append(f)
+        out += (row_f & 255).astype(np.uint8).tobytes()
+        prev = row
+    return bytes(out)
+
+
+def write_png(path, img, level, strategy=zlib.Z_DEFAULT_STRATEGY,
+              filters=(0, 1, 2, 3, 4), n_idat=1):
+    """An 8-bit RGB ((H, W, 3) uint8) or 16-bit grey ((H, W) uint16) PNG
+    written here: the rows filtered with `filters` in turn, the zlib
+    stream at `level` and `strategy`, split over `n_idat` IDAT chunks.
+    Returns the zlib stream."""
+    h, w = img.shape[:2]
+    if img.dtype == np.uint16:
+        kind, depth, bpp = 0, 16, 2
+        raw = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+    else:
+        kind, depth, bpp = 2, 8, 3
+        raw = img.reshape(h, 3 * w)
+    co = zlib.compressobj(level, zlib.DEFLATED, 15, 9, strategy)
+    stream = co.compress(_filter_rows(raw, bpp, filters)) + co.flush()
+    cuts = np.linspace(0, len(stream), n_idat + 1).astype(int)
+    idat = b"".join(_png_chunk(b"IDAT", stream[a:b])
+                    for a, b in zip(cuts[:-1], cuts[1:]))
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, kind, 0,
+                                          0, 0))
+        + idat + _png_chunk(b"IEND", b""))
+    return stream
+
+
+def _test_images(seed, h=40, w=56):
+    """An RGB and a depth image with flat patches, ramps and noise, so
+    that every filter and both literals and matches occur."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    rgb[5:20, 3:40] = [200, 30, 90]
+    rgb[25:] = (np.arange(w)[None, :, None] * [3, 5, 7]).astype(np.uint8)
+    depth = rng.integers(0, 65536, (h, w)).astype(np.uint16)
+    depth[8:30, 10:50] = 4321
+    depth[30:] = np.arange(w, dtype=np.uint16)[None] * 997
+    return rgb, depth
+
+
+@pytest.mark.parametrize("level,strategy,btype",
+                         [(0, zlib.Z_DEFAULT_STRATEGY, 0),
+                          (1, zlib.Z_FIXED, 1),
+                          (9, zlib.Z_DEFAULT_STRATEGY, 2)],
+                         ids=["stored", "fixed", "dynamic"])
+def test_native_decode_equals_pil_on_written_pngs(tmp_path, level, strategy,
+                                                  btype):
+    """Hand-written PNGs, 8-bit RGB and 16-bit grey, each row filter in
+    every image, the IDAT data in one and in three chunks, at zlib level
+    0 (stored blocks), 1 with fixed codes and 9 (dynamic codes): the
+    native decode equals PIL's and the written image bit for bit."""
+    rgb, depth = _test_images(level)
+    h, w = depth.shape
+    for n_idat, filters in ((1, (0, 1, 2, 3, 4)), (3, (4, 3, 2, 1, 0))):
+        rp, dp = tmp_path / f"rgb{n_idat}.png", tmp_path / f"d{n_idat}.png"
+        for stream in (write_png(rp, rgb, level, strategy, filters, n_idat),
+                       write_png(dp, depth, level, strategy, filters[::-1],
+                                 n_idat)):
+            assert (stream[2] >> 1) & 3 == btype   # the first block's type
+        got_rgb, got_depth = native_loader.decode_pair(str(rp), str(dp), w, h)
+        np.testing.assert_array_equal(got_rgb, np.asarray(Image.open(rp)))
+        np.testing.assert_array_equal(got_depth, np.asarray(Image.open(dp)))
+        np.testing.assert_array_equal(got_rgb, rgb)
+        np.testing.assert_array_equal(got_depth, depth)
+
+
+def test_native_decode_refuses_broken_files(tmp_path):
+    """A file cut inside its chunks, a zlib stream cut short inside whole
+    chunks, a wrong Adler-32, a wrong size and a missing file: decode_pair
+    raises IOError, and the process lives on."""
+    rgb, depth = _test_images(5)
+    h, w = depth.shape
+    rp, dp = tmp_path / "rgb.png", tmp_path / "d.png"
+    stream = write_png(rp, rgb, 9)
+    write_png(dp, depth, 9)
+    good = rp.read_bytes()
+    bad = tmp_path / "bad.png"
+
+    def refused(data, width=w, height=h):
+        bad.write_bytes(data)
+        with pytest.raises(IOError):
+            native_loader.decode_pair(str(bad), str(dp), width, height)
+
+    for cut in (20, 45, 70, len(good) // 2, len(good) - 20):
+        refused(good[:cut])
+    head = good[:good.index(b"IDAT") - 4]
+    for short in (stream[:len(stream) // 2], stream[:-4],
+                  stream[:-1] + bytes([stream[-1] ^ 1])):
+        refused(head + _png_chunk(b"IDAT", short) + _png_chunk(b"IEND", b""))
+    refused(good, width=w + 1)
+    with pytest.raises(IOError):
+        native_loader.decode_pair(str(tmp_path / "none.png"), str(dp), w, h)
+    assert native_loader.decode_pair(str(rp), str(dp), w, h)[0].shape \
+        == (h, w, 3)
+
+
+def test_prefetcher_refuses_a_served_frame(tmp_path):
+    """Each frame is handed out once: asking again for a frame already
+    served, or for one out of range, raises IOError at once (it used to
+    wait forever); frames not yet served still come, in any order."""
+    rgb, depth = _test_images(6)
+    h, w = depth.shape
+    pairs = []
+    for k in range(4):
+        rp, dp = tmp_path / f"rgb{k}.png", tmp_path / f"d{k}.png"
+        write_png(rp, np.roll(rgb, k, axis=1), 6)
+        write_png(dp, np.roll(depth, k, axis=1), 6)
+        pairs.append((str(rp), str(dp)))
+    loader = native_loader.PrefetchingLoader(pairs, w, h, n_threads=2,
+                                             lookahead=2)
+    errors = []
+
+    def consume():
+        try:
+            for k in (0, 2):
+                got = loader.get(k)
+                np.testing.assert_array_equal(got[0], np.roll(rgb, k, axis=1))
+            for k in (0, 2, 4, -1):
+                with pytest.raises(IOError, match="already served"):
+                    loader.get(k)
+            np.testing.assert_array_equal(loader.get(1)[1],
+                                          np.roll(depth, 1, axis=1))
+            loader.get(3)
+            with pytest.raises(IOError, match="already served"):
+                loader.get(3)
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    worker = threading.Thread(target=consume, daemon=True)
+    worker.start()
+    worker.join(timeout=60)
+    try:
+        assert not worker.is_alive(), "the prefetcher blocked"
+        if errors:
+            raise errors[0]
+    finally:
+        if not worker.is_alive():
+            loader.close()
 
 
 def test_renders_equal_jax():

@@ -1,6 +1,7 @@
 """Training the person detector on a CUDA card against the plain CPU path:
-from one seeded `init_params` (made on the CPU), the first 5 steps on the
-same batches of the committed held-out labels (640x480, batch 8). cuDNN
+from `init_params()` (JAX's initial weights, drawn on the CPU), the first
+5 steps on the same batches of the committed held-out labels (640x480,
+batch 8). cuDNN
 is asked for deterministic algorithms; the card's convolutions still sum
 in another order than the CPU's, so agreement is held with stated
 tolerances. Skipped without a card; on the card:
