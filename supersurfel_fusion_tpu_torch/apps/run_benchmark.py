@@ -3,8 +3,10 @@
 Port of `supersurfel_fusion_tpu/apps/run_benchmark.py` (the reference's
 `supersurfel_fusion_rgbd_benchmark_node`): replays a TUM sequence
 synchronously through the frame step, writes a TUM-format trajectory and
-prints one JSON line with the run's statistics and, when the sequence has
-ground truth, ATE and RPE.
+prints one JSON line with the run's statistics (with `stage_ms`, the mean
+host ms per frame of each span of the port's recorder, `tracing.py`, over
+the run's last 512 frames) and, when the sequence has ground truth, ATE
+and RPE.
 
 Usage:
   python -m supersurfel_fusion_tpu_torch.apps.run_benchmark \\
@@ -122,6 +124,7 @@ def main(argv=None) -> int:
     import torch
 
     from supersurfel_fusion_tpu_torch import config as C
+    from supersurfel_fusion_tpu_torch import tracing
     from supersurfel_fusion_tpu_torch.device import resolve_device
     from supersurfel_fusion_tpu_torch.eval.trajectory import ate, rpe
     from supersurfel_fusion_tpu_torch.io.tum import (
@@ -174,6 +177,7 @@ def main(argv=None) -> int:
         os.makedirs(args.dump_images, exist_ok=True)
 
     slam = SupersurfelFusion(cfg, device=dev)
+    first_frame = tracing.RECORDER.count
     t_first = None
     # tracking stats are gathered on the device every 50 frames and read
     # once after the run (or live with --stats)
@@ -251,7 +255,8 @@ def main(argv=None) -> int:
     model_mb = int(st.model.nb_supersurfels) * 104 / 1e6
     result = {"frames": n, "fps": round(fps, 2), "trajectory": traj_path,
               "model_mb": round(model_mb, 2), "device": str(dev),
-              "loader": loader}
+              "loader": loader,
+              "stage_ms": tracing.stage_ms(tracing.frames(first_frame))}
     if use_ferns:
         result["lc_count"] = int(st.lc_count)
         result["keyframes"] = int(st.kf_store.db.count)

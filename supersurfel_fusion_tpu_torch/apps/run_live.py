@@ -19,7 +19,9 @@ Outputs: one TUM-format pose line per frame, appended and flushed to
 ``--out``; ``--render-every N`` writes the superpixel, slanted-plane, MOD
 mask and model images to ``--render-dir``; ``--save-model`` exports the
 final model. The last line on standard output is one JSON object
-(``frames``, ``fps``, ``trajectory``).
+(``frames``, ``fps``, ``trajectory``, and ``stage_ms``: the mean host ms
+per frame of each span of the port's recorder, `tracing.py`, over the
+run's last 512 frames).
 
 Frames are processed in order and none is dropped: a feed faster than the
 frame step builds a backlog.
@@ -227,6 +229,7 @@ def main(argv=None) -> int:
     args = _args(argv)
 
     from supersurfel_fusion_tpu_torch import config as C
+    from supersurfel_fusion_tpu_torch import tracing
     from supersurfel_fusion_tpu_torch.device import resolve_device
     from supersurfel_fusion_tpu_torch.eval.trajectory import mat_to_quat_np
     from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
@@ -246,6 +249,7 @@ def main(argv=None) -> int:
 
     n = 0
     t0 = None
+    first_frame = tracing.RECORDER.count
     with open(args.out, "w") as traj:
         for ts, rgb_path, depth_path in stream:
             try:
@@ -283,7 +287,9 @@ def main(argv=None) -> int:
 
     fps = (n - 1) / max(time.time() - t0, 1e-9) if n > 1 else 0.0
     print(json.dumps({"frames": n, "fps": round(fps, 2),
-                      "trajectory": args.out}))
+                      "trajectory": args.out,
+                      "stage_ms": tracing.stage_ms(
+                          tracing.frames(first_frame))}))
     return 0
 
 

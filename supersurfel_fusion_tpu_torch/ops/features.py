@@ -21,6 +21,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import VOConfig
 from supersurfel_fusion_tpu_torch.ops.depth import shift2d
 from supersurfel_fusion_tpu_torch.ops.tps import _iota
@@ -327,20 +328,22 @@ def detect_and_describe(gray: Tensor, cfg: VOConfig) -> Keypoints:
     img = gray
     for lvl in range(cfg.nb_levels):
         scale = cfg.scale_factor**lvl
-        if lvl > 0:
-            img = resize_bilinear(gray, *_level_shape(H0, W0, lvl,
-                                                      cfg.scale_factor))
-
-        hi, lo, score = fast_scores(img, float(cfg.ini_th_fast),
-                                    float(cfg.min_th_fast))
-        harris = harris_response(img) if cfg.harris_rank else score
-        cx, cy, val, valid = _select_level_keypoints(
-            hi, lo, score, harris, budgets[lvl], border=_PATCH_R + 1,
-            cell=int(cfg.detect_cell))
-        patches = _extract_patches(img, cx, cy)
-        angle = _orientations(patches)
-        patches_b = _extract_patches(gaussian_blur(img), cx, cy)
-        desc = _descriptors(patches_b, angle)
+        with tracing.span("features.score"):
+            if lvl > 0:
+                img = resize_bilinear(gray, *_level_shape(H0, W0, lvl,
+                                                          cfg.scale_factor))
+            hi, lo, score = fast_scores(img, float(cfg.ini_th_fast),
+                                        float(cfg.min_th_fast))
+            harris = harris_response(img) if cfg.harris_rank else score
+        with tracing.span("features.select"):
+            cx, cy, val, valid = _select_level_keypoints(
+                hi, lo, score, harris, budgets[lvl], border=_PATCH_R + 1,
+                cell=int(cfg.detect_cell))
+        with tracing.span("features.describe"):
+            patches = _extract_patches(img, cx, cy)
+            angle = _orientations(patches)
+            patches_b = _extract_patches(gaussian_blur(img), cx, cy)
+            desc = _descriptors(patches_b, angle)
 
         all_xy.append(torch.stack([cx.to(torch.float32) * scale,
                                    cy.to(torch.float32) * scale], dim=-1))

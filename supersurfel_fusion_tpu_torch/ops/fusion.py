@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import CameraIntrinsics, FusionConfig
 from supersurfel_fusion_tpu_torch.types import ModelState, Supersurfels
 from supersurfel_fusion_tpu_torch.utils.color import lab_to_rgb, rgb_to_lab
@@ -349,22 +350,28 @@ def update_model(state: ModelState, frame: Supersurfels, labels: Tensor,
     live (`fusion.insert_requires_icp`); the JAX package's `lax.cond` is a
     mask here, with the same result. None always inserts."""
     model, nb, nbv = state.surfels, state.nb_supersurfels, state.nb_visible
-    boot_state, boot_stats = _bootstrap(model, frame, R, t)
+    with tracing.span("fusion.bootstrap"):
+        boot_state, boot_stats = _bootstrap(model, frame, R, t)
 
     vcap = min(cfg.visible_cap, model.capacity)
-    match = find_best_matches(model.prefix(vcap), nbv, frame, labels, R, t,
-                              cam, cfg)
-    fused = _fuse(frame, model, match, R, t, stamp)
-    inserted, nb_new, n_dropped = _insert(frame, fused, match, nb, R, t,
-                                          stamp, allow_insert)
-    compacted, nb_live, nb_vis = filter_and_compact(
-        inserted, nb_new, plane_depth, R, t, cam, cfg, conf_thresh, stamp)
-    stats = FusionStats(
-        n_fused=torch.sum(((match.model_match >= 0) & match.matched).to(
-            torch.int32)),
-        n_inserted=(nb_new - nb).to(torch.int32),
-        n_removed=(nb_new - nb_live).to(torch.int32),
-        n_dropped=n_dropped,
-    )
-    return where_tree(nb == 0, (boot_state, boot_stats),
-                      (ModelState(compacted, nb_live, nb_vis), stats))
+    with tracing.span("fusion.match"):
+        match = find_best_matches(model.prefix(vcap), nbv, frame, labels, R,
+                                  t, cam, cfg)
+    with tracing.span("fusion.fuse"):
+        fused = _fuse(frame, model, match, R, t, stamp)
+    with tracing.span("fusion.insert"):
+        inserted, nb_new, n_dropped = _insert(frame, fused, match, nb, R, t,
+                                              stamp, allow_insert)
+    with tracing.span("fusion.filter"):
+        compacted, nb_live, nb_vis = filter_and_compact(
+            inserted, nb_new, plane_depth, R, t, cam, cfg, conf_thresh,
+            stamp)
+        stats = FusionStats(
+            n_fused=torch.sum(((match.model_match >= 0) & match.matched).to(
+                torch.int32)),
+            n_inserted=(nb_new - nb).to(torch.int32),
+            n_removed=(nb_new - nb_live).to(torch.int32),
+            n_dropped=n_dropped,
+        )
+        return where_tree(nb == 0, (boot_state, boot_stats),
+                          (ModelState(compacted, nb_live, nb_vis), stats))

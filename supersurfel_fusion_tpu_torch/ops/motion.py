@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import (
     CameraIntrinsics,
     MODConfig,
@@ -339,179 +340,191 @@ def detect_motion(
     n_sp = gh * gw
 
     # ---- geometric clustering
-    adj = superpixel_adjacency(tps.labels, gh, gw, cs)
-    pos_t = frame.positions.reshape(gh, gw, 3)
-    nrm_t = frame.orientations[:, 2, :].reshape(gh, gw, 3)
-    conf_t = frame.confidences.reshape(gh, gw)
-    root, _ = geometric_clusters(adj, pos_t, nrm_t, conf_t, gh, gw, cfg)
+    with tracing.span("mod.clusters"):
+        adj = superpixel_adjacency(tps.labels, gh, gw, cs)
+        pos_t = frame.positions.reshape(gh, gw, 3)
+        nrm_t = frame.orientations[:, 2, :].reshape(gh, gw, 3)
+        conf_t = frame.confidences.reshape(gh, gw)
+        root, _ = geometric_clusters(adj, pos_t, nrm_t, conf_t, gh, gw, cfg)
 
     # ---- combined path: person boxes -> depth-guided flood fill first, so
     # person keypoints never enter the camera-motion estimation and person
     # superpixels never dilute cluster flow statistics
-    combined = cfg.use_yolo and detector is not None
-    ui, vi = _keypoint_pixels(kp.xy, H, W)
-    kp_sp = tps.labels[vi, ui].to(torch.int64)
-    if combined:
-        det = detector(rgb_gray, depth, max_det=cfg.max_person_boxes,
-                       score_thresh=cfg.person_score_thresh)
-        person = person_flood_fill(
-            det.boxes, det.valid, adj, tps.stats.centroid, pos_t, conf_t,
-            tps.labels, gh, gw, cs, depth_gate=cfg.person_depth_gate,
-        ).reshape(-1)
-    else:
-        person = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
-    kp_nonperson = kp.valid & ~person[kp_sp]
+    with tracing.span("mod.person"):
+        combined = cfg.use_yolo and detector is not None
+        ui, vi = _keypoint_pixels(kp.xy, H, W)
+        kp_sp = tps.labels[vi, ui].to(torch.int64)
+        if combined:
+            det = detector(rgb_gray, depth, max_det=cfg.max_person_boxes,
+                           score_thresh=cfg.person_score_thresh)
+            person = person_flood_fill(
+                det.boxes, det.valid, adj, tps.stats.centroid, pos_t, conf_t,
+                tps.labels, gh, gw, cs, depth_gate=cfg.person_depth_gate,
+            ).reshape(-1)
+        else:
+            person = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
+        kp_nonperson = kp.valid & ~person[kp_sp]
 
-    # current keypoint 3D from the filtered depth (for the rigid fit)
-    zk = depth[vi, ui]
-    kp_z_ok = (zk >= 0.2) & (zk < 5.0)
-    kp_p3d = torch.stack(
-        [zk * (kp.xy[:, 0] - cam.cx) / cam.fx,
-         zk * (kp.xy[:, 1] - cam.cy) / cam.fy, zk], dim=-1)
+    with tracing.span("mod.flow"):
+        # current keypoint 3D from the filtered depth (for the rigid fit)
+        zk = depth[vi, ui]
+        kp_z_ok = (zk >= 0.2) & (zk < 5.0)
+        kp_p3d = torch.stack(
+            [zk * (kp.xy[:, 0] - cam.cx) / cam.fx,
+             zk * (kp.xy[:, 1] - cam.cy) / cam.fy, zk], dim=-1)
 
-    # ---- camera-motion-compensated residual flow
-    midx, _, mok = match_bruteforce(prev.kp_desc, prev.kp_valid, kp.desc,
-                                    kp_nonperson)
-    midx = midx.to(torch.int64)
-    mxy = kp.xy[midx]
-    inl = gms_filter(prev.kp_xy, mxy, mok, float(W), float(H))
-    a, b, tx, ty, H_ok = estimate_similarity_ransac(
-        prev.kp_xy, mxy, inl, img_w=float(W), img_h=float(H))
+        # ---- camera-motion-compensated residual flow
+        midx, _, mok = match_bruteforce(prev.kp_desc, prev.kp_valid, kp.desc,
+                                        kp_nonperson)
+        midx = midx.to(torch.int64)
+        mxy = kp.xy[midx]
+        inl = gms_filter(prev.kp_xy, mxy, mok, float(W), float(H))
+        a, b, tx, ty, H_ok = estimate_similarity_ransac(
+            prev.kp_xy, mxy, inl, img_w=float(W), img_h=float(H))
 
-    gray_est = warp_similarity(prev.gray, a, b, tx, ty, 0.0)
-    flow = dense_flow(rgb_gray, gray_est)   # current -> warped previous
+        gray_est = warp_similarity(prev.gray, a, b, tx, ty, 0.0)
+        flow = dense_flow(rgb_gray, gray_est)   # current -> warped previous
 
-    # ---- per-superpixel mean residual flow (border 40, 2 < |uv| <= 50,
-    # normalised by the full superpixel size, as the reference does)
-    y = torch.arange(H, device=dev)[:, None]
-    x = torch.arange(W, device=dev)[None, :]
-    mag = torch.sqrt(flow[..., 0] * flow[..., 0] + flow[..., 1] * flow[..., 1])
-    take = ((x >= 40) & (x < W - 40) & (y >= 40) & (y < H - 40)
-            & torch.isfinite(mag) & (mag > 2.0) & (mag <= 50.0))
-    fl = torch.where(take[..., None], flow, torch.zeros_like(flow))
-    sums = cell_reduce(fl, tps.labels, gh, gw, cs)            # (GH, GW, 2)
-    sp_size = torch.clamp(tps.stats.size, min=1.0)
-    uv_sp = sums / sp_size[..., None]
-    uv_mag = torch.sqrt(uv_sp[..., 0] * uv_sp[..., 0]
-                        + uv_sp[..., 1] * uv_sp[..., 1]).reshape(-1)
+        # ---- per-superpixel mean residual flow (border 40, 2 < |uv| <= 50,
+        # normalised by the full superpixel size, as the reference does)
+        y = torch.arange(H, device=dev)[:, None]
+        x = torch.arange(W, device=dev)[None, :]
+        mag = torch.sqrt(flow[..., 0] * flow[..., 0]
+                         + flow[..., 1] * flow[..., 1])
+        take = ((x >= 40) & (x < W - 40) & (y >= 40) & (y < H - 40)
+                & torch.isfinite(mag) & (mag > 2.0) & (mag <= 50.0))
+        fl = torch.where(take[..., None], flow, torch.zeros_like(flow))
+        sums = cell_reduce(fl, tps.labels, gh, gw, cs)            # (GH, GW, 2)
+        sp_size = torch.clamp(tps.stats.size, min=1.0)
+        uv_sp = sums / sp_size[..., None]
+        uv_mag = torch.sqrt(uv_sp[..., 0] * uv_sp[..., 0]
+                            + uv_sp[..., 1] * uv_sp[..., 1]).reshape(-1)
 
     # ---- cluster membership + singleton fill-in. Combined path: clusters
     # need > 2 members and person superpixels carry no label
-    root_f = root.reshape(-1).to(torch.int64)
-    csize = torch.zeros((n_sp,), dtype=torch.int32, device=dev).index_add_(
-        0, root_f, torch.ones_like(root_f, dtype=torch.int32))
-    min_csize = 2 if combined else 1
-    in_cluster = csize[root_f] > min_csize
-    minus1 = torch.full_like(root_f, -1)
-    label = torch.where(in_cluster & ~person, root_f, minus1)
+    with tracing.span("mod.fill"):
+        root_f = root.reshape(-1).to(torch.int64)
+        csize = torch.zeros((n_sp,), dtype=torch.int32, device=dev).index_add_(
+            0, root_f, torch.ones_like(root_f, dtype=torch.int32))
+        min_csize = 2 if combined else 1
+        in_cluster = csize[root_f] > min_csize
+        minus1 = torch.full_like(root_f, -1)
+        label = torch.where(in_cluster & ~person, root_f, minus1)
 
-    # the neighbours of each superpixel, as (25, N) rows in offset order
-    # (the centre row is all false: adjacency needs another label)
-    adj24 = adj.permute(2, 0, 1).reshape(25, n_sp)
+        # the neighbours of each superpixel, as (25, N) rows in offset order
+        # (the centre row is all false: adjacency needs another label)
+        adj24 = adj.permute(2, 0, 1).reshape(25, n_sp)
 
-    # fill-in 1: adopt the unanimous neighbour label (the first neighbour
-    # in offset order sets the reference label; all must agree)
-    L = _gather25(label.reshape(gh, gw), -2, gh, gw).reshape(25, n_sp)
-    any_n = adj24.any(0)
-    first = torch.argmax(adj24.to(torch.int8), dim=0)
-    ref_lab = torch.where(any_n, L.gather(0, first[None])[0], minus1)
-    agree = torch.all(~adj24 | (L == ref_lab[None]), dim=0)
-    fill1 = (label < 0) & ~person & any_n & agree & (ref_lab >= 0)
-    label = torch.where(fill1, ref_lab, label)
+        # fill-in 1: adopt the unanimous neighbour label (the first neighbour
+        # in offset order sets the reference label; all must agree)
+        L = _gather25(label.reshape(gh, gw), -2, gh, gw).reshape(25, n_sp)
+        any_n = adj24.any(0)
+        first = torch.argmax(adj24.to(torch.int8), dim=0)
+        ref_lab = torch.where(any_n, L.gather(0, first[None])[0], minus1)
+        agree = torch.all(~adj24 | (L == ref_lab[None]), dim=0)
+        fill1 = (label < 0) & ~person & any_n & agree & (ref_lab >= 0)
+        label = torch.where(fill1, ref_lab, label)
 
-    # fill-in 2: the closest neighbour in Lab colour (distance < 20; the
-    # first of equally close ones)
-    lab_col = rgb_to_lab(tps.stats.color)                     # (GH, GW, 3)
-    L = _gather25(label.reshape(gh, gw), -1, gh, gw).reshape(25, n_sp)
-    cj = _gather25(lab_col, float("nan"), gh, gw).reshape(25, n_sp, 3)
-    d = _norm3(lab_col.reshape(1, n_sp, 3) - cj)
-    cand = adj24 & (L >= 0) & torch.isfinite(d)
-    dc = torch.where(cand, d, torch.full_like(d, float("inf")))
-    k_best = torch.argmin(dc, dim=0)
-    d_best = dc.gather(0, k_best[None])[0]
-    best_l = torch.where(d_best < 20.0, L.gather(0, k_best[None])[0], minus1)
-    fill2 = (label < 0) & ~person & (best_l >= 0)
-    label = torch.where(fill2, best_l, label)
+        # fill-in 2: the closest neighbour in Lab colour (distance < 20; the
+        # first of equally close ones)
+        lab_col = rgb_to_lab(tps.stats.color)                     # (GH, GW, 3)
+        L = _gather25(label.reshape(gh, gw), -1, gh, gw).reshape(25, n_sp)
+        cj = _gather25(lab_col, float("nan"), gh, gw).reshape(25, n_sp, 3)
+        d = _norm3(lab_col.reshape(1, n_sp, 3) - cj)
+        cand = adj24 & (L >= 0) & torch.isfinite(d)
+        dc = torch.where(cand, d, torch.full_like(d, float("inf")))
+        k_best = torch.argmin(dc, dim=0)
+        d_best = dc.gather(0, k_best[None])[0]
+        best_l = torch.where(d_best < 20.0, L.gather(0, k_best[None])[0],
+                             minus1)
+        fill2 = (label < 0) & ~person & (best_l >= 0)
+        label = torch.where(fill2, best_l, label)
 
     # ---- cluster mean flow + threshold (base 2.5 px simple, 4.0 combined)
-    lab_c = torch.where(label >= 0, label, torch.full_like(label, n_sp))
-    cl_flow = _cluster_sum(lab_c, uv_mag, n_sp)
-    cl_cnt = _cluster_sum(lab_c, torch.ones_like(uv_mag), n_sp)
-    cl_mean = cl_flow / torch.clamp(cl_cnt, min=1.0)
+    with tracing.span("mod.cues"):
+        lab_c = torch.where(label >= 0, label, torch.full_like(label, n_sp))
+        cl_flow = _cluster_sum(lab_c, uv_mag, n_sp)
+        cl_cnt = _cluster_sum(lab_c, torch.ones_like(uv_mag), n_sp)
+        cl_mean = cl_flow / torch.clamp(cl_cnt, min=1.0)
 
-    base = cfg.flow_thresh_combined if combined else cfg.flow_thresh_simple
-    flow_thresh = base + 0.5 * torch.sqrt(tx * tx + ty * ty)
-    dyn_cluster = cl_mean > flow_thresh                       # (N+1,)
+        base = cfg.flow_thresh_combined if combined else cfg.flow_thresh_simple
+        flow_thresh = base + 0.5 * torch.sqrt(tx * tx + ty * ty)
+        dyn_cluster = cl_mean > flow_thresh                       # (N+1,)
 
-    # ---- cluster depth-residual cue: a full SE(3) inverse warp against
-    # the previous filtered depth, with the rigid motion fitted by 3D-3D
-    # RANSAC over the matched keypoints
-    dscale = (cfg.depth_cue_scale_combined if combined
-              else cfg.depth_cue_scale_simple)
-    mark_resid = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
-    if dscale > 0:
-        pair_ok = (inl & kp_z_ok[midx] & prev.kp_valid
-                   & (prev.kp_p3d[:, 2] >= 0.2) & (prev.kp_p3d[:, 2] < 5.0))
-        R_rig, t_rig, rigid_ok, _ = ransac_rigid_3d(
-            prev.kp_p3d, kp_p3d[midx], pair_ok, thresh=0.05,
-            min_inliers=15, min_ratio=0.15,
-            src_xy=prev.kp_xy, img_w=float(W), img_h=float(H))
-        resid = se3_depth_residual(depth, prev.depth, R_rig, t_rig,
-                                   cam.fx, cam.fy, cam.cx, cam.cy)
-        resid_abs = torch.abs(resid)
-        # positive part only: pixels newly covered by a mover
-        resid_pos = torch.clamp(resid, min=0.0)
-        r_valid = (resid_abs > 0.0).to(torch.float32)
-        rsums = cell_reduce(torch.stack([resid_abs, resid_pos, r_valid], -1),
-                            tps.labels, gh, gw, cs)
-        den = torch.clamp(rsums[..., 2], min=32.0)
-        sp_zdiff = (rsums[..., 0] / den).reshape(-1)
-        sp_pos_t = rsums[..., 1] / den
-        zsp = torch.where(pos_t[..., 2] > 0, pos_t[..., 2],
-                          torch.zeros_like(pos_t[..., 2])).reshape(-1)
-        cl_zdiff = _cluster_sum(lab_c, sp_zdiff, n_sp)
-        cl_z = _cluster_sum(lab_c, zsp, n_sp)
-        cl_zdiff = cl_zdiff / torch.clamp(cl_cnt, min=1.0)
-        cl_z = cl_z / torch.clamp(cl_cnt, min=1.0)
-        # Kinect noise model threshold
-        depth_thresh = dscale * (0.0012 + 0.0019 * (cl_z - 0.4) ** 2)
-        dyn_cluster = dyn_cluster | (rigid_ok & (cl_zdiff > depth_thresh))
+        # ---- cluster depth-residual cue: a full SE(3) inverse warp against
+        # the previous filtered depth, with the rigid motion fitted by 3D-3D
+        # RANSAC over the matched keypoints
+        dscale = (cfg.depth_cue_scale_combined if combined
+                  else cfg.depth_cue_scale_simple)
+        mark_resid = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
+        if dscale > 0:
+            pair_ok = (inl & kp_z_ok[midx] & prev.kp_valid
+                       & (prev.kp_p3d[:, 2] >= 0.2)
+                       & (prev.kp_p3d[:, 2] < 5.0))
+            R_rig, t_rig, rigid_ok, _ = ransac_rigid_3d(
+                prev.kp_p3d, kp_p3d[midx], pair_ok, thresh=0.05,
+                min_inliers=15, min_ratio=0.15,
+                src_xy=prev.kp_xy, img_w=float(W), img_h=float(H))
+            resid = se3_depth_residual(depth, prev.depth, R_rig, t_rig,
+                                       cam.fx, cam.fy, cam.cx, cam.cy)
+            resid_abs = torch.abs(resid)
+            # positive part only: pixels newly covered by a mover
+            resid_pos = torch.clamp(resid, min=0.0)
+            r_valid = (resid_abs > 0.0).to(torch.float32)
+            rsums = cell_reduce(
+                torch.stack([resid_abs, resid_pos, r_valid], -1),
+                tps.labels, gh, gw, cs)
+            den = torch.clamp(rsums[..., 2], min=32.0)
+            sp_zdiff = (rsums[..., 0] / den).reshape(-1)
+            sp_pos_t = rsums[..., 1] / den
+            zsp = torch.where(pos_t[..., 2] > 0, pos_t[..., 2],
+                              torch.zeros_like(pos_t[..., 2])).reshape(-1)
+            cl_zdiff = _cluster_sum(lab_c, sp_zdiff, n_sp)
+            cl_z = _cluster_sum(lab_c, zsp, n_sp)
+            cl_zdiff = cl_zdiff / torch.clamp(cl_cnt, min=1.0)
+            cl_z = cl_z / torch.clamp(cl_cnt, min=1.0)
+            # Kinect noise model threshold
+            depth_thresh = dscale * (0.0012 + 0.0019 * (cl_z - 0.4) ** 2)
+            dyn_cluster = dyn_cluster | (rigid_ok & (cl_zdiff > depth_thresh))
 
-        # direct per-superpixel marking with hysteresis: unambiguous
-        # newly-closer residual marks outright and grows over the
-        # adjacency into weak-evidence neighbours
-        if cfg.resid_direct:
-            hot = ((sp_pos_t > cfg.resid_hot_thresh) & rigid_ok).reshape(-1)
-            weak = (sp_pos_t > cfg.resid_low_thresh).reshape(-1)
-            nbr = _gated_index(adj24, gh, gw)
-            mark_resid = _grow(hot, weak, nbr, cfg.resid_hyst_iters)
+            # direct per-superpixel marking with hysteresis: unambiguous
+            # newly-closer residual marks outright and grows over the
+            # adjacency into weak-evidence neighbours
+            if cfg.resid_direct:
+                hot = ((sp_pos_t > cfg.resid_hot_thresh)
+                       & rigid_ok).reshape(-1)
+                weak = (sp_pos_t > cfg.resid_low_thresh).reshape(-1)
+                nbr = _gated_index(adj24, gh, gw)
+                mark_resid = _grow(hot, weak, nbr, cfg.resid_hyst_iters)
 
-    dynamic = ((label >= 0) & dyn_cluster[lab_c]) | person | mark_resid
+    with tracing.span("mod.decide"):
+        dynamic = ((label >= 0) & dyn_cluster[lab_c]) | person | mark_resid
 
-    # ---- temporal persistence: paused movers stop firing the cues above
-    # but stay dynamic while the heat carried from their last detection
-    # (warped by the camera-motion similarity, decayed) is above
-    # heat_thresh. The heat is seeded only from the targeted cues (person
-    # boxes and direct depth-residual marks), never from the clusters.
-    if cfg.temporal_heat:
-        heat_mark, new_heat = heat_update(
-            prev.heat, (person | mark_resid).reshape(gh, gw), a, b, tx, ty,
-            H_ok & prev.initialized, cs, cfg)
-        heat_mark = heat_mark.reshape(-1) & prev.initialized
-        dynamic = dynamic | heat_mark
-    else:
-        heat_mark = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
-        new_heat = prev.heat
+        # ---- temporal persistence: paused movers stop firing the cues above
+        # but stay dynamic while the heat carried from their last detection
+        # (warped by the camera-motion similarity, decayed) is above
+        # heat_thresh. The heat is seeded only from the targeted cues (person
+        # boxes and direct depth-residual marks), never from the clusters.
+        if cfg.temporal_heat:
+            heat_mark, new_heat = heat_update(
+                prev.heat, (person | mark_resid).reshape(gh, gw), a, b, tx, ty,
+                H_ok & prev.initialized, cs, cfg)
+            heat_mark = heat_mark.reshape(-1) & prev.initialized
+            dynamic = dynamic | heat_mark
+        else:
+            heat_mark = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
+            new_heat = prev.heat
 
-    first_frame = ~prev.initialized | ~H_ok
-    # person-, residual- and heat-driven marks apply even when the 2D flow
-    # compensation failed (the rigid fit is gated separately by rigid_ok;
-    # the heat falls back to an identity warp)
-    is_static_sp = torch.where(first_frame,
-                               ~(person | mark_resid | heat_mark), ~dynamic)
+        first_frame = ~prev.initialized | ~H_ok
+        # person-, residual- and heat-driven marks apply even when the 2D
+        # flow compensation failed (the rigid fit is gated separately by
+        # rigid_ok; the heat falls back to an identity warp)
+        is_static_sp = torch.where(first_frame,
+                                   ~(person | mark_resid | heat_mark),
+                                   ~dynamic)
 
-    # ---- static keypoints (dynamic ones dropped from VO + prev context)
-    static_kp = kp.valid & is_static_sp[kp_sp]
+        # ---- static keypoints (dynamic ones dropped from VO + prev context)
+        static_kp = kp.valid & is_static_sp[kp_sp]
 
     new_prev = MODPrev(
         gray=rgb_gray,

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import TPSConfig
 from supersurfel_fusion_tpu_torch.ops.depth import shift2d
 from supersurfel_fusion_tpu_torch.utils import prng
@@ -508,28 +509,29 @@ def segment(rgb: Tensor, disp: Tensor, cfg: TPSConfig) -> TPSResult:
     labels = grid_labels(H, W, cs, rgb.device)
     inliers = torch.zeros((H, W), dtype=torch.bool, device=rgb.device)
 
-    stats = _merge_rgb(rgb, labels, gh, gw, cs)
-    S = stat_image(stats, labels, gh, gw, cs)
-
-    for _ in range(cfg.nb_iters // 2):
-        for phase in range(4):
-            labels, inliers, S = phase_update(
-                labels, inliers, S, rgb, disp, phase, cfg,
-                use_disp=False, gh=gh, gw=gw)
-            if cfg.merge_every_phase:
+    with tracing.span("tps.rgb"):
+        stats = _merge_rgb(rgb, labels, gh, gw, cs)
+        S = stat_image(stats, labels, gh, gw, cs)
+        for _ in range(cfg.nb_iters // 2):
+            for phase in range(4):
+                labels, inliers, S = phase_update(
+                    labels, inliers, S, rgb, disp, phase, cfg,
+                    use_disp=False, gh=gh, gw=gw)
+                if cfg.merge_every_phase:
+                    stats = _merge_rgb(rgb, labels, gh, gw, cs)
+                    S = stat_image(stats, labels, gh, gw, cs)
+            if not cfg.merge_every_phase:
                 stats = _merge_rgb(rgb, labels, gh, gw, cs)
                 S = stat_image(stats, labels, gh, gw, cs)
-        if not cfg.merge_every_phase:
-            stats = _merge_rgb(rgb, labels, gh, gw, cs)
-            S = stat_image(stats, labels, gh, gw, cs)
 
-    if cfg.use_ransac:
-        _, inliers = ransac_plane_init(disp, labels, stats, cfg, gh, gw)
-    else:
-        inliers = torch.isfinite(disp)
-    theta = fit_planes(disp, labels, inliers, gh, gw, cs)
-    stats = stats._replace(theta=theta)
-    S = stat_image(stats, labels, gh, gw, cs)
+    with tracing.span("tps.plane_init"):
+        if cfg.use_ransac:
+            _, inliers = ransac_plane_init(disp, labels, stats, cfg, gh, gw)
+        else:
+            inliers = torch.isfinite(disp)
+        theta = fit_planes(disp, labels, inliers, gh, gw, cs)
+        stats = stats._replace(theta=theta)
+        S = stat_image(stats, labels, gh, gw, cs)
 
     def remerge(labels, inliers):
         rgbm = _merge_rgb(rgb, labels, gh, gw, cs)
@@ -537,15 +539,16 @@ def segment(rgb: Tensor, disp: Tensor, cfg: TPSConfig) -> TPSResult:
         st = SuperpixelStats(rgbm.centroid, rgbm.color, rgbm.size, theta)
         return st, stat_image(st, labels, gh, gw, cs)
 
-    for _ in range(cfg.nb_iters - cfg.nb_iters // 2):
-        for phase in range(4):
-            labels, inliers, S = phase_update(
-                labels, inliers, S, rgb, disp, phase, cfg,
-                use_disp=True, gh=gh, gw=gw)
-            if cfg.merge_every_phase:
+    with tracing.span("tps.rgbd"):
+        for _ in range(cfg.nb_iters - cfg.nb_iters // 2):
+            for phase in range(4):
+                labels, inliers, S = phase_update(
+                    labels, inliers, S, rgb, disp, phase, cfg,
+                    use_disp=True, gh=gh, gw=gw)
+                if cfg.merge_every_phase:
+                    stats, S = remerge(labels, inliers)
+            if not cfg.merge_every_phase:
                 stats, S = remerge(labels, inliers)
-        if not cfg.merge_every_phase:
-            stats, S = remerge(labels, inliers)
 
     return TPSResult(labels=labels, boundary=boundary_count(labels),
                      inliers=inliers, stats=stats, disp=disp)

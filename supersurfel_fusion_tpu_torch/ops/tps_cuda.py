@@ -37,6 +37,7 @@ from pathlib import Path
 
 import torch
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import TPSConfig
 from supersurfel_fusion_tpu_torch.ops import tps as tps_ref
 
@@ -325,16 +326,21 @@ def _segment(iterate, rgb: Tensor, disp: Tensor,
     table = torch.zeros((9, gh, gw), dtype=torch.float32, device=dev)
 
     n_rgb = cfg.nb_iters // 2
-    labels, inliers, table = iterate(rgb_chw, disp, labels, inliers, table,
-                                     n_rgb, False, cfg)
-    stats = stats_from_table(table)
-    if cfg.use_ransac:
-        _, inl_b = tps_ref.ransac_plane_init(disp, labels, stats, cfg, gh, gw)
-    else:
-        inl_b = torch.isfinite(disp)
-    inliers = inl_b.to(torch.float32)
-    labels, inliers, table = iterate(rgb_chw, disp, labels, inliers, table,
-                                     cfg.nb_iters - n_rgb, True, cfg)
+    with tracing.span("tps.rgb"):
+        labels, inliers, table = iterate(rgb_chw, disp, labels, inliers,
+                                         table, n_rgb, False, cfg)
+    with tracing.span("tps.plane_init"):
+        stats = stats_from_table(table)
+        if cfg.use_ransac:
+            _, inl_b = tps_ref.ransac_plane_init(disp, labels, stats, cfg,
+                                                 gh, gw)
+        else:
+            inl_b = torch.isfinite(disp)
+        inliers = inl_b.to(torch.float32)
+    with tracing.span("tps.rgbd"):
+        labels, inliers, table = iterate(rgb_chw, disp, labels, inliers,
+                                         table, cfg.nb_iters - n_rgb, True,
+                                         cfg)
     return tps_ref.TPSResult(
         labels=labels,
         boundary=tps_ref.boundary_count(labels),

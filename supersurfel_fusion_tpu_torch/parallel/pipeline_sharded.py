@@ -47,8 +47,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import PipelineConfig
 from supersurfel_fusion_tpu_torch.models.person_detector import (
     PersonDetector,
@@ -207,7 +207,7 @@ def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
         if cfg.enable_icp or cfg.enable_loop_closure:
             target_maps = _target_maps(frame, tps.labels, plane_depth, cfg)
         if cfg.enable_icp:
-            with record_function("ssf.icp"):
+            with tracing.stage("icp"):
                 R_view = pose.R.T
                 t_view = -(R_view @ pose.t)
                 icp = icp_ops.symmetric_icp(surfels, nb_vis, target_maps,
@@ -227,7 +227,7 @@ def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
         lc_count = state.lc_count
         out = {}
         if use_ferns:
-            with record_function("ssf.ferns"):
+            with tracing.stage("ferns"):
                 kf_gids = kf_sh.global_ids(kf_store.db.codes.shape[0], mesh)
                 codes = fern_codes(rgb, fdepth, cfg)
                 best_id, _, is_new = kf_sh.query_sharded(
@@ -236,7 +236,7 @@ def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
                 kp_p3d, kp_depth_ok = keypoints_3d(kp, fdepth, cfg)
             out.update(fern_id=best_id, fern_new=is_new)
         if use_ferns and cfg.enable_loop_closure:
-            with record_function("ssf.loop_closure"):
+            with tracing.stage("loop_closure"):
                 db = kf_store.db
                 gap = cfg.ferns.min_frame_gap
                 kf_stamp_best = kf_sh.get_stamp_sharded(db.stamps, best_id,
@@ -274,7 +274,7 @@ def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
         # sharded fusion, insertion, filtering and compaction (step 13):
         # no bootstrap branch; on an empty model nothing matches and the
         # first frame inserts on rank 0
-        with record_function("ssf.fusion"):
+        with tracing.stage("fusion"):
             new_surfels, nb_live, nb_vis_new = local_model_update(
                 surfels, nb_loc, nb_vis, frame, tps.labels, plane_depth,
                 pose.R, pose.t, stamp, cam, cfg.fusion, cfg.conf_thresh,
@@ -290,7 +290,7 @@ def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
 
         # keyframe snapshot on its owner rank (step 14)
         if use_ferns:
-            with record_function("ssf.ferns"):
+            with tracing.stage("ferns"):
                 kf_store, _ = kf_sh.add_keyframe_sharded(
                     kf_store, kf_store.db.count, codes, pose.R, pose.t,
                     stamp, kp.xy, kp_p3d, kp.desc, kp.valid & kp_depth_ok,

@@ -21,8 +21,14 @@ temporal heat for MOD (`mod.temporal_heat`), and two protections against
 tracking loss on frames whose ICP was gate-rejected against a live model
 (`fusion.freeze_on_tracking_loss` keeps the whole model,
 `fusion.insert_requires_icp` only skips insertion), both selects on the
-device. Each stage runs under a `torch.profiler.record_function` range
-named "ssf.<stage>", which `tools/profile_frame.py` reads.
+device. Each frame step is a frame span of the port's span recorder
+(`tracing.py`), and each stage in it a recorder span around a
+`torch.profiler.record_function` range named "ssf.<stage>"; the stages'
+parts are recorder spans alone, so the profiler sees the stage ranges
+side by side. The benchmark (`slam_bench/`) reads both: the ranges under
+its profiler, the recorder's spans of the frames it does not profile and
+their launches in the frames it does. The runners report the mean host
+ms of each span (`stage_ms`).
 
 One step needs the host: with loop closure on, the frame step reads the
 fern gate once per frame and runs `close_global_loop` only on a frame
@@ -37,8 +43,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import PipelineConfig
 from supersurfel_fusion_tpu_torch.device import resolve_device
 from supersurfel_fusion_tpu_torch.eval.trajectory import mat_to_quat_np
@@ -191,11 +197,13 @@ def _icp_step(state: SLAMState, frame: Supersurfels, labels: Tensor,
         return icp, pose, None
     R_view = pose.R.T
     t_view = -(R_view @ pose.t)
-    target_maps = _target_maps(frame, labels, plane_depth, cfg)
+    with tracing.span("icp.targets"):
+        target_maps = _target_maps(frame, labels, plane_depth, cfg)
     vcap = min(cfg.fusion.visible_cap, cfg.fusion.nb_supersurfels_max)
-    icp = icp_ops.symmetric_icp(
-        state.model.surfels.prefix(vcap), state.model.nb_visible,
-        target_maps, R_view, t_view, cfg.cam, cfg.icp)
+    with tracing.span("icp.iterate"):
+        icp = icp_ops.symmetric_icp(
+            state.model.surfels.prefix(vcap), state.model.nb_visible,
+            target_maps, R_view, t_view, cfg.cam, cfg.icp)
     use = icp.valid & (state.model.nb_visible > 0)
     R_new = orthonormalize(pose.R @ icp.R_rel)
     t_new = pose.R @ icp.t_rel + pose.t
@@ -245,23 +253,23 @@ def front_end(rgb: Tensor, depth: Tensor, cfg: PipelineConfig,
     gh, gw = cfg.grid_h, cfg.grid_w
 
     # 1. depth prefilter + disparity
-    with record_function("ssf.depth"):
+    with tracing.stage("depth"):
         fdepth = bilateral_filter(depth, cfg.bilateral_sigma_value,
                                   cfg.bilateral_sigma_space,
                                   cfg.bilateral_radius)
         disp = depth_to_disp(fdepth)
 
     # 2-5. TPS superpixels + plane smoothing + slanted-plane depth
-    with record_function("ssf.tps"):
+    with tracing.stage("tps"):
         tps = _segment(rgb, disp, cfg)
-    with record_function("ssf.planes"):
+    with tracing.stage("planes"):
         theta_s = tps_ops.smooth_planes(tps.stats, cfg.tps)
         tps = tps._replace(stats=tps.stats._replace(theta=theta_s))
         plane_depth = tps_ops.render_plane_depth(theta_s, tps.labels, gh, gw,
                                                  cs)
 
     # 6. supersurfel generation (camera frame)
-    with record_function("ssf.supersurfels"):
+    with tracing.stage("supersurfels"):
         frame = generate_supersurfels(
             rgb, plane_depth, tps, cfg.cam, cfg.tps, cfg.generation,
             cfg.fusion.range_min, cfg.fusion.range_max, stamp)
@@ -314,11 +322,11 @@ def motion_and_vo(rgb: Tensor, fe: FrontEnd, pose: Pose,
                         torch.zeros((), dtype=torch.bool, device=dev),
                         torch.zeros((), dtype=torch.int32, device=dev),
                         is_static_sp)
-    with record_function("ssf.features"):
+    with tracing.stage("features"):
         gray = rgb_to_gray(rgb)
         kp = detect_and_describe(gray, cfg.vo)
     if cfg.mod.enabled:
-        with record_function("ssf.mod"):
+        with tracing.stage("mod"):
             # MOD reads the bilateral-filtered depth (keypoint 3D and the
             # SE(3) depth residual need metric depth at corners)
             is_static_sp, static_kp, mod_prev = motion_ops.detect_motion(
@@ -336,12 +344,14 @@ def motion_and_vo(rgb: Tensor, fe: FrontEnd, pose: Pose,
                 is_static_sp, frame.confidences,
                 torch.full_like(frame.confidences, -1.0)))
             kp = kp._replace(valid=static_kp)
-    with record_function("ssf.vo"):
-        matches, lmap = vo_ops.find_matches(lmap, kp, pose.R, pose.t, cam,
-                                            cfg.vo)
-        R_vo, t_vo, pnp_ok, _ = vo_ops.pnp_solve(
-            pose.R, pose.t, matches.map_pos, matches.kp_xy, matches.ok, cam,
-            cfg.vo)
+    with tracing.stage("vo"):
+        with tracing.span("vo.match"):
+            matches, lmap = vo_ops.find_matches(lmap, kp, pose.R, pose.t,
+                                                cam, cfg.vo)
+        with tracing.span("vo.pnp"):
+            R_vo, t_vo, pnp_ok, _ = vo_ops.pnp_solve(
+                pose.R, pose.t, matches.map_pos, matches.kp_xy, matches.ok,
+                cam, cfg.vo)
     vo_valid = pnp_ok & (matches.n >= cfg.vo.min_matches)
     pose = Pose(torch.where(vo_valid, R_vo, pose.R),
                 torch.where(vo_valid, t_vo, pose.t))
@@ -374,7 +384,7 @@ def update_local_map(mv: MotionVO, fdepth: Tensor, labels: Tensor,
     """Step 12: local-map maintenance with the final fused pose."""
     if not cfg.enable_sparse_vo:
         return lmap
-    with record_function("ssf.local_map"):
+    with tracing.stage("local_map"):
         mod_args = dict(labels=labels, static_sp=mv.is_static_sp) \
             if cfg.mod.enabled else {}
         return vo_ops.update_local_map(lmap, mv.kp, fdepth, mv.matches,
@@ -383,12 +393,17 @@ def update_local_map(mv: MotionVO, fdepth: Tensor, labels: Tensor,
 
 
 def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
-    """One SLAM step on the state's device.
+    """One SLAM step on the state's device, recorded as one frame span.
 
     rgb: (H, W, 3) uint8 or float32 [0, 255]; depth: (H, W) raw uint16
     counts (scaled by cfg.depth_scale) or float32 metres (0 invalid), as
     numpy arrays or tensors. Integer inputs are converted on the device.
     Returns (new_state, outputs)."""
+    with tracing.frame():
+        return _step(state, rgb, depth, cfg)
+
+
+def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     dev = state.stamp.device
     rgb, depth = frame_inputs(rgb, depth, cfg, dev)
 
@@ -404,7 +419,7 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     vo_valid, vo_matches = mv.vo_valid, mv.vo_matches
 
     # 9. dense symmetric ICP refinement against the visible model
-    with record_function("ssf.icp"):
+    with tracing.stage("icp"):
         icp, pose, target_maps = _icp_step(state, frame, tps.labels,
                                            plane_depth, pose, cfg)
 
@@ -418,14 +433,14 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     use_ferns = (cfg.ferns.enabled or cfg.enable_loop_closure) \
         and cfg.enable_sparse_vo
     if use_ferns:
-        with record_function("ssf.ferns"):
+        with tracing.stage("ferns"):
             codes = fern_codes(rgb, fdepth, cfg)
             best_id, _, is_new = ferns_ops.query(kf_store.db, codes,
                                                  cfg.ferns.new_frame_thresh)
             kp_p3d, kp_depth_ok = keypoints_3d(kp, fdepth, cfg)
         fern_out = dict(fern_id=best_id, fern_new=is_new)
     if use_ferns and cfg.enable_loop_closure:
-        with record_function("ssf.loop_closure"):
+        with tracing.stage("loop_closure"):
             db = kf_store.db
             gap = cfg.ferns.min_frame_gap
             kf_stamp_best = lc_ops.take_row(db.stamps, best_id)
@@ -471,7 +486,7 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     model_in = state.model._replace(surfels=model_surfels)
     icp_ok = icp.valid | (state.model.nb_supersurfels == 0)
     gate_insert = cfg.fusion.insert_requires_icp and cfg.enable_icp
-    with record_function("ssf.fusion"):
+    with tracing.stage("fusion"):
         model, fusion_stats = fusion_ops.update_model(
             model_in, frame, tps.labels, plane_depth, pose.R, pose.t, cam,
             cfg.fusion, cfg.conf_thresh, state.stamp,
@@ -484,7 +499,7 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
 
     # 14. new-keyframe snapshot (Ferns::addKeyFrame), masked on the device
     if use_ferns:
-        with record_function("ssf.ferns"):
+        with tracing.stage("ferns"):
             kf_store = lc_ops.add_keyframe_payload(
                 kf_store, codes, pose, state.stamp, kp, kp_p3d, kp_depth_ok,
                 frame, when=is_new)

@@ -59,8 +59,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.convert import to_params
 from supersurfel_fusion_tpu_torch.device import resolve_device
 from supersurfel_fusion_tpu_torch.models.person_detector import (
@@ -279,13 +279,13 @@ class Trainer:
              sm: Tensor) -> Tensor:
         """One step on a batch: returns the loss before the update (a 0-d
         tensor on the device; nothing waits for it)."""
-        with record_function("ssf.train_loss"):
+        with tracing.stage("train_loss"):
             logits, size = self.det.forward_maps(g_u8.to(torch.float32),
                                                  depth_metres(d16))
             loss = detector_loss(logits, size, ht, st, sm)
-        with record_function("ssf.train_grad"):
+        with tracing.stage("train_grad"):
             grads = torch.autograd.grad(loss, self.params)
-        with record_function("ssf.train_adam"):
+        with tracing.stage("train_adam"):
             self.update(grads)
         return loss.detach()
 
@@ -367,7 +367,7 @@ def fit(trainer: Trainer, labels: LabelSet, counts: np.ndarray, batch: int,
         for k, flip in plan[:max_steps]:
             lrs.append(float(learning_rate(trainer.count, trainer.lr,
                                            trainer.n_steps)))
-            with record_function("ssf.train_batch"):
+            with tracing.stage("train_batch"):
                 b = labels.batch(order[k:k + batch], flip)
             losses.append(trainer.step(*b))
             if timing:

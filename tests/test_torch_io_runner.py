@@ -472,6 +472,11 @@ def test_runner_one_frame_at_640x480(tmp_path):
     assert res["loader"] == "native"
     assert res["lc_count"] == 0 and res["keyframes"] == 1
     assert res["trajectory"] == str(traj) and res["model_mb"] > 0
+    # the recorder's mean host ms per span over the run's one frame
+    sm = res["stage_ms"]
+    assert {"frame", "ssf.tps", "tps.rgbd", "ssf.ferns", "ssf.loop_closure",
+            "ssf.fusion", "fusion.filter"} <= set(sm)
+    assert 0 < sm["ssf.tps"] < sm["frame"]
     rows = ttum.read_trajectory_file(str(traj))
     assert list(rows) == [stamps[0]]
     np.testing.assert_allclose(rows[stamps[0]],

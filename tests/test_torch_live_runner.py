@@ -138,6 +138,8 @@ def test_live_runner_on_a_fed_stream_equals_offline_runner(sequence,
     assert rc == 0 and not feeder.is_alive()
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["frames"] == 2 and res["trajectory"] == str(live_out)
+    assert {"frame", "ssf.vo", "vo.pnp"} <= set(res["stage_ms"])
+    assert 0 < res["stage_ms"]["vo.pnp"] < res["stage_ms"]["frame"]
     assert fed == stamps
     live = read_trajectory_file(str(live_out))
     assert sorted(live) == list(live) == stamps
