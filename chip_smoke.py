@@ -15,9 +15,10 @@ JAX, and:
    same inputs, and the kernel-backed TPS segmentation against the plain
    one, and times kernel, plain version, bound and library yardstick;
 4. pipeline phase: drives the default `PipelineConfig` frame step through
-   `SupersurfelFusion` on a synthetic clip with a known trajectory, counts
-   the kernel launches, checks tracking, and holds the first frames against
-   the plain CPU path;
+   `SupersurfelFusion` on a synthetic clip with a known trajectory (its
+   stages CUDA graphs from the second frame on), counts the TPS launchers'
+   calls and the kernels' runs in a CUDA trace of the last frame, checks
+   tracking, and holds the first frames against the plain CPU path;
 5. detector phase: the person detector (committed weights) on the card
    against the plain CPU path on one rendered 640x480 frame;
 6. motion phase: `detect_motion` on the card against the CPU on two
@@ -78,8 +79,9 @@ JAX, and:
    second, wall time, peak memory, the loss of every epoch against a band
    set from CPU runs, held-out recall and precision beside the committed
    weights'; then the detector phase again with the card-trained weights;
-16. prints the kernel table as one JSON line (launches summed over every
-   pipeline phase and every rank) and, last,
+16. prints the kernel table as one JSON line (launcher calls summed over
+   every pipeline phase and every rank; a graph's replay runs the kernels
+   without them) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -525,23 +527,25 @@ def pipeline_phase(dev):
     tps_cuda.reset_launch_counts()
     outs, frame_s = [], []
     for k, (rgb, depth, _) in enumerate(clip):
-        t1 = time.time()
-        out = slam.process(rgb, depth, timestamp=float(k))
-        torch.cuda.synchronize()
-        frame_s.append(time.time() - t1)
+        if k == N_FRAMES - 1:    # under a CUDA trace, left out of the times
+            out, runs = tps_runs(
+                lambda: slam.process(rgb, depth, timestamp=float(k)))
+        else:
+            t1 = time.time()
+            out = slam.process(rgb, depth, timestamp=float(k))
+            torch.cuda.synchronize()
+            frame_s.append(time.time() - t1)
         outs.append(out)
     launches = dict(tps_cuda.launch_counts)
     peak = torch.cuda.max_memory_allocated()
 
-    log(f"  launches {launches} over {N_FRAMES} frames")
-    check(launches["tps_iteration"] == 10 * N_FRAMES,
-          "10 tps_iteration launches per frame")
-    check(launches["tps_merge"] == 12 * N_FRAMES,
-          "12 tps_merge launches per frame")
+    log(f"  launches {launches} over {N_FRAMES} frames, runs in the last "
+        f"{runs}")
+    check_tps(launches, runs)
     steady = frame_s[2:]
     log(f"  ms/frame: first {frame_s[0] * 1e3:.1f}, steady mean "
         f"{np.mean(steady) * 1e3:.2f} median {np.median(steady) * 1e3:.2f} "
-        f"(frames 2..{N_FRAMES - 1}); peak memory "
+        f"(frames 2..{N_FRAMES - 2}); peak memory "
         f"{peak / 2**20:.1f} MiB")
 
     gt = synthetic.trajectory(N_FRAMES)
@@ -707,24 +711,26 @@ def mod_pipeline_phase(dev):
     tps_cuda.reset_launch_counts()
     outs, frame_s = [], []
     for k, (rgb, depth, _, _) in enumerate(clip):
-        t1 = time.time()
-        out = slam.process(rgb, depth, timestamp=float(k))
-        torch.cuda.synchronize()
-        frame_s.append(time.time() - t1)
+        if k == N_FRAMES - 1:    # under a CUDA trace, left out of the times
+            out, runs = tps_runs(
+                lambda: slam.process(rgb, depth, timestamp=float(k)))
+        else:
+            t1 = time.time()
+            out = slam.process(rgb, depth, timestamp=float(k))
+            torch.cuda.synchronize()
+            frame_s.append(time.time() - t1)
         outs.append(out)
     launches = dict(tps_cuda.launch_counts)
     peak = torch.cuda.max_memory_allocated()
 
-    log(f"  launches {launches} over {N_FRAMES} frames")
-    check(launches["tps_iteration"] == 10 * N_FRAMES,
-          "10 tps_iteration launches per frame")
-    check(launches["tps_merge"] == 12 * N_FRAMES,
-          "12 tps_merge launches per frame")
+    log(f"  launches {launches} over {N_FRAMES} frames, runs in the last "
+        f"{runs}")
+    check_tps(launches, runs)
     steady = np.array(frame_s[2:]) * 1e3
     log(f"  ms/frame: first {frame_s[0] * 1e3:.1f}, mean (all) "
         f"{np.mean(frame_s) * 1e3:.2f}, median (all) "
         f"{np.median(frame_s) * 1e3:.2f}, steady mean {steady.mean():.2f} "
-        f"median {np.median(steady):.2f} (frames 2..{N_FRAMES - 1}); peak "
+        f"median {np.median(steady):.2f} (frames 2..{N_FRAMES - 2}); peak "
         f"memory {peak / 2**20:.1f} MiB")
 
     traj = np.array(slam.trajectory)
@@ -817,6 +823,34 @@ def frame_launches(fn):
     return stage_launches(prof.events(), 1)
 
 
+def tps_runs(fn):
+    """(fn(), the TPS kernels' runs on the card during it by kernel), read
+    from a CUDA trace of the call: a CUDA graph's replay runs them without
+    calling their launchers, whose own counts (`tps_cuda.launch_counts`)
+    see the op-by-op frames and the capture alone."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch.tools.profile_frame import kernel_runs
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    runs = kernel_runs(prof, ["tps_iteration_kernel", "tps_merge_kernel"])
+    return out, {k[:-len("_kernel")]: v for k, v in runs.items()}
+
+
+def check_tps(launches: dict, runs: dict) -> None:
+    """The TPS launchers called on a runner's op-by-op first frame and its
+    capture frame alone (its stages replay as CUDA graphs after), and a
+    replayed frame's trace running 10 iterations and 12 merges."""
+    check(launches == {"tps_iteration": 20, "tps_merge": 24},
+          "TPS launchers called on the first two frames alone")
+    check(runs == {"tps_iteration": 10, "tps_merge": 12},
+          "a replayed frame runs 10 tps_iteration and 12 tps_merge kernels")
+
+
 def lc_pipeline_phase(dev):
     """Ferns and loop closure over the revisit clip through the user's
     entry point, on the card; then the closure frame and the graph solve
@@ -865,10 +899,14 @@ def lc_pipeline_phase(dev):
         outs, frame_s, kept, prev = [], [], {}, None
         for k, (rgb, depth, _) in enumerate(clip):
             before = slam.state
-            t1 = time.time()
-            out = slam.process(rgb, depth, timestamp=float(k))
-            torch.cuda.synchronize()
-            frame_s.append(time.time() - t1)
+            if k == n - 1:   # under a CUDA trace, left out of the times
+                out, runs = tps_runs(
+                    lambda: slam.process(rgb, depth, timestamp=float(k)))
+            else:
+                t1 = time.time()
+                out = slam.process(rgb, depth, timestamp=float(k))
+                torch.cuda.synchronize()
+                frame_s.append(time.time() - t1)
             outs.append(out)
             if out.lc_gate and not kept:
                 kept = {k: before, k - 1: prev}
@@ -878,10 +916,8 @@ def lc_pipeline_phase(dev):
     finally:
         deformation.optimise = orig_opt
 
-    log(f"  launches {launches} over {n} frames")
-    check(launches["tps_iteration"] == 10 * n,
-          "10 tps_iteration launches per frame")
-    check(launches["tps_merge"] == 12 * n, "12 tps_merge launches per frame")
+    log(f"  launches {launches} over {n} frames, runs in the last {runs}")
+    check_tps(launches, runs)
     st = slam.state
     gates = [k for k, o in enumerate(outs) if o.lc_gate]
     accepted = [k for k, o in enumerate(outs)
@@ -1138,8 +1174,9 @@ def runner_phase(dev):
             check(res["loader"] == "native", "runner: frames decoded by the "
                   "native loader (\"loader\": \"native\")")
             fps["lc" if lc else "plain"] = res["fps"]
-    check(launches["tps_iteration"] == 20 * RUNNER_FRAMES,
-          "runner: 10 tps_iteration launches per frame")
+    check(launches == {"tps_iteration": 2 * 20, "tps_merge": 2 * 24},
+          "runner: each run calls the TPS launchers on its first two frames "
+          "alone (the stages replay as CUDA graphs after)")
     log(f"  runner fps with the native prefetcher ({CARD}): with "
         f"--loop-closure {fps['lc']}, without {fps['plain']}")
     return launches, dict(decode, fps_lc=fps["lc"], fps=fps["plain"])
@@ -1394,10 +1431,9 @@ def live_phase(dev):
               and json.loads(buf.getvalue().strip().splitlines()[-1])
               ["frames"] == LIVE_STDIN_FRAMES,
               f"--stdin: {LIVE_STDIN_FRAMES} frames, one pose line each")
-    n_steps = 3 * LIVE_FRAMES + LIVE_STDIN_FRAMES
-    check(launches["tps_iteration"] == 10 * n_steps
-          and launches["tps_merge"] == 12 * n_steps,
-          "live phase: 10 tps_iteration and 12 tps_merge launches per frame")
+    check(launches == {"tps_iteration": 4 * 20, "tps_merge": 4 * 24},
+          "live phase: each of the 4 runs calls the TPS launchers on its "
+          "first two frames alone (the stages replay as CUDA graphs after)")
     return launches, {
         "fps": res["fps"], "fps_unwatched": res2["fps"],
         "decode_ms": float(dec), "process_ms": float(proc),
@@ -1750,9 +1786,8 @@ def nb_samples_phase(dev):
           and offs.min() >= -cs / 2 and offs.max() < cs / 2,
           f"nb_samples: the plane init reads a {NB_SAMPLES}-row table on "
           f"both devices")
-    check(launches["tps_iteration"] == 10 * NB_FRAMES
-          and launches["tps_merge"] == 12 * NB_FRAMES,
-          "nb_samples: both TPS kernels launched as in the default step")
+    check(launches == {"tps_iteration": 20, "tps_merge": 24},
+          "nb_samples: TPS launchers called on the first two frames alone")
     check(bool(np.isfinite(tg).all()) and dt < NB_POSE_MAX,
           "nb_samples: card agrees with the plain CPU path (|dt| < 2 mm)")
     return launches, {"dt": dt, "err_max": float(err.max())}
@@ -1820,9 +1855,8 @@ def collect_phase(dev):
           and gray.dtype == np.uint8 and depth.dtype == np.uint16
           and (start, end) == (0, COLLECT_FRAMES) and len(counts) == n,
           "collect: the label file's layout (frames 2.. of the sequence)")
-    check(launches["tps_iteration"] == 10 * COLLECT_FRAMES
-          and launches["tps_merge"] == 12 * COLLECT_FRAMES,
-          "collect: 10 + 12 TPS launches per frame")
+    check(launches == {"tps_iteration": 20, "tps_merge": 24},
+          "collect: TPS launchers called on the first two frames alone")
     hits, per_frame = 0, []
     for i in range(n):
         k = i + 2

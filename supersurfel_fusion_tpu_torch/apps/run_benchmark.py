@@ -5,8 +5,10 @@ Port of `supersurfel_fusion_tpu/apps/run_benchmark.py` (the reference's
 synchronously through the frame step, writes a TUM-format trajectory and
 prints one JSON line with the run's statistics (with `stage_ms`, the mean
 host ms per frame of each span of the port's recorder, `tracing.py`, over
-the run's last 512 frames) and, when the sequence has ground truth, ATE
-and RPE.
+the run's last 4096 frames, and `graphs`: the stages captured as CUDA
+graphs, the host ms of their capture and, over the same frames, the mean
+stages per frame replayed and run op by op) and, when the sequence has
+ground truth, ATE and RPE.
 
 Usage:
   python -m supersurfel_fusion_tpu_torch.apps.run_benchmark \\
@@ -253,10 +255,11 @@ def main(argv=None) -> int:
     gt = {a.rgb_ts: a.gt for a in ds.associations[:n] if a.gt is not None}
     # 104 B/surfel: 24 floats + int2, as the reference counts it
     model_mb = int(st.model.nb_supersurfels) * 104 / 1e6
+    recorded = tracing.frames(first_frame)
     result = {"frames": n, "fps": round(fps, 2), "trajectory": traj_path,
               "model_mb": round(model_mb, 2), "device": str(dev),
-              "loader": loader,
-              "stage_ms": tracing.stage_ms(tracing.frames(first_frame))}
+              "loader": loader, "stage_ms": tracing.stage_ms(recorded),
+              "graphs": slam.graph_report(recorded)}
     if use_ferns:
         result["lc_count"] = int(st.lc_count)
         result["keyframes"] = int(st.kf_store.db.count)

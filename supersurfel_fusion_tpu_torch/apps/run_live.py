@@ -19,9 +19,11 @@ Outputs: one TUM-format pose line per frame, appended and flushed to
 ``--out``; ``--render-every N`` writes the superpixel, slanted-plane, MOD
 mask and model images to ``--render-dir``; ``--save-model`` exports the
 final model. The last line on standard output is one JSON object
-(``frames``, ``fps``, ``trajectory``, and ``stage_ms``: the mean host ms
-per frame of each span of the port's recorder, `tracing.py`, over the
-run's last 512 frames).
+(``frames``, ``fps``, ``trajectory``, ``stage_ms``: the mean host ms per
+frame of each span of the port's recorder, `tracing.py`, over the run's
+last 4096 frames, and ``graphs``: the stages captured as CUDA graphs, the
+host ms of their capture and, over the same frames, the mean stages per
+frame replayed and run op by op).
 
 Frames are processed in order and none is dropped: a feed faster than the
 frame step builds a backlog.
@@ -286,10 +288,11 @@ def main(argv=None) -> int:
                      int(st.model.nb_supersurfels), cfg.conf_thresh)
 
     fps = (n - 1) / max(time.time() - t0, 1e-9) if n > 1 else 0.0
+    recorded = tracing.frames(first_frame)
     print(json.dumps({"frames": n, "fps": round(fps, 2),
                       "trajectory": args.out,
-                      "stage_ms": tracing.stage_ms(
-                          tracing.frames(first_frame))}))
+                      "stage_ms": tracing.stage_ms(recorded),
+                      "graphs": slam.graph_report(recorded)}))
     return 0
 
 

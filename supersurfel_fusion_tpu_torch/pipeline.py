@@ -23,12 +23,15 @@ tracking loss on frames whose ICP was gate-rejected against a live model
 `fusion.insert_requires_icp` only skips insertion), both selects on the
 device. Each frame step is a frame span of the port's span recorder
 (`tracing.py`), and each stage in it a recorder span around a
-`torch.profiler.record_function` range named "ssf.<stage>"; the stages'
-parts are recorder spans alone, so the profiler sees the stage ranges
-side by side. The benchmark (`slam_bench/`) reads both: the ranges under
-its profiler, the recorder's spans of the frames it does not profile and
-their launches in the frames it does. The runners report the mean host
-ms of each span (`stage_ms`).
+`torch.profiler.record_function` range named "ssf.<stage>". Every stage
+but `ferns` and `loop_closure` is one function called through
+`graphs.stage`, which runs it op by op or, in `SupersurfelFusion` on a
+CUDA device, as a CUDA graph captured from that function (`graphs.py`;
+`mod` stays op by op). The stages' parts are recorder spans alone, so the
+profiler sees the stage ranges side by side. The benchmark (`slam_bench/`)
+reads both: the ranges under its profiler, the recorder's spans of the
+frames it does not profile and their launches in the frames it does. The
+runners report the mean host ms of each span (`stage_ms`).
 
 One step needs the host: with loop closure on, the frame step reads the
 fern gate once per frame and runs `close_global_loop` only on a frame
@@ -39,12 +42,13 @@ frame, and none with loop closure off.
 from __future__ import annotations
 
 import warnings
+from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from supersurfel_fusion_tpu_torch import tracing
+from supersurfel_fusion_tpu_torch import graphs, tracing
 from supersurfel_fusion_tpu_torch.config import PipelineConfig
 from supersurfel_fusion_tpu_torch.device import resolve_device
 from supersurfel_fusion_tpu_torch.eval.trajectory import mat_to_quat_np
@@ -180,11 +184,11 @@ def _target_maps(frame: Supersurfels, labels: Tensor, plane_depth: Tensor,
         cfg.fusion.range_min, cfg.fusion.range_max)
 
 
-def _icp_step(state: SLAMState, frame: Supersurfels, labels: Tensor,
+def _icp_step(model: ModelState, frame: Supersurfels, labels: Tensor,
               plane_depth: Tensor, pose: Pose, cfg: PipelineConfig):
-    """Dense ICP against the visible model prefix; the pose takes the
-    correction where ICP is valid. Returns (ICPResult, pose, the frame's
-    target maps or None with ICP off)."""
+    """Stage icp: dense ICP against the visible model prefix; the pose
+    takes the correction where ICP is valid. Returns (ICPResult, pose, the
+    frame's target maps or None with ICP off)."""
     dev = labels.device
     if not cfg.enable_icp:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -202,9 +206,9 @@ def _icp_step(state: SLAMState, frame: Supersurfels, labels: Tensor,
     vcap = min(cfg.fusion.visible_cap, cfg.fusion.nb_supersurfels_max)
     with tracing.span("icp.iterate"):
         icp = icp_ops.symmetric_icp(
-            state.model.surfels.prefix(vcap), state.model.nb_visible,
+            model.surfels.prefix(vcap), model.nb_visible,
             target_maps, R_view, t_view, cfg.cam, cfg.icp)
-    use = icp.valid & (state.model.nb_visible > 0)
+    use = icp.valid & (model.nb_visible > 0)
     R_new = orthonormalize(pose.R @ icp.R_rel)
     t_new = pose.R @ icp.t_rel + pose.t
     return icp, Pose(torch.where(use, R_new, pose.R),
@@ -237,52 +241,9 @@ def _upload(a, dev: torch.device) -> Tensor:
     return t.to(dev)
 
 
-class FrontEnd(NamedTuple):
-    fdepth: Tensor                 # (H, W) bilateral-filtered depth
-    tps: tps_ops.TPSResult         # superpixels, with smoothed planes
-    plane_depth: Tensor            # (H, W) slanted-plane depth
-    frame: Supersurfels            # the frame's supersurfels (camera frame)
-
-
-def front_end(rgb: Tensor, depth: Tensor, cfg: PipelineConfig,
-              stamp: Tensor) -> FrontEnd:
-    """Steps 1-6 of the frame step on float rgb (H, W, 3) and depth (H, W)
-    metres: depth prefilter, TPS superpixels, plane smoothing,
-    slanted-plane depth and supersurfel generation."""
-    cs = cfg.tps.cell_size
-    gh, gw = cfg.grid_h, cfg.grid_w
-
-    # 1. depth prefilter + disparity
-    with tracing.stage("depth"):
-        fdepth = bilateral_filter(depth, cfg.bilateral_sigma_value,
-                                  cfg.bilateral_sigma_space,
-                                  cfg.bilateral_radius)
-        disp = depth_to_disp(fdepth)
-
-    # 2-5. TPS superpixels + plane smoothing + slanted-plane depth
-    with tracing.stage("tps"):
-        tps = _segment(rgb, disp, cfg)
-    with tracing.stage("planes"):
-        theta_s = tps_ops.smooth_planes(tps.stats, cfg.tps)
-        tps = tps._replace(stats=tps.stats._replace(theta=theta_s))
-        plane_depth = tps_ops.render_plane_depth(theta_s, tps.labels, gh, gw,
-                                                 cs)
-
-    # 6. supersurfel generation (camera frame)
-    with tracing.stage("supersurfels"):
-        frame = generate_supersurfels(
-            rgb, plane_depth, tps, cfg.cam, cfg.tps, cfg.generation,
-            cfg.fusion.range_min, cfg.fusion.range_max, stamp)
-    return FrontEnd(fdepth, tps, plane_depth, frame)
-
-
-def frame_inputs(rgb, depth, cfg: PipelineConfig, dev: torch.device):
-    """rgb (H, W, 3) and depth (H, W) as float32 tensors on `dev`, depth
-    in metres: uint8/float rgb, raw uint16 depth counts (scaled by
-    cfg.depth_scale) or float32 metres, as numpy arrays or tensors.
-    Integer inputs are converted on the device."""
-    rgb = _upload(rgb, dev)
-    depth = _upload(depth, dev)
+def _as_float(rgb: Tensor, depth: Tensor, cfg: PipelineConfig):
+    """rgb and depth as float32, depth in metres (raw uint16 or int32
+    counts scaled by cfg.depth_scale); float32 inputs pass unchanged."""
     if rgb.dtype != torch.float32:
         rgb = rgb.to(torch.float32)
     if depth.dtype in (torch.uint16, torch.int32):
@@ -290,6 +251,59 @@ def frame_inputs(rgb, depth, cfg: PipelineConfig, dev: torch.device):
     elif depth.dtype != torch.float32:
         depth = depth.to(torch.float32)
     return rgb, depth
+
+
+class FrontEnd(NamedTuple):
+    fdepth: Tensor                 # (H, W) bilateral-filtered depth
+    tps: tps_ops.TPSResult         # superpixels, with smoothed planes
+    plane_depth: Tensor            # (H, W) slanted-plane depth
+    frame: Supersurfels            # the frame's supersurfels (camera frame)
+    rgb: Optional[Tensor] = None   # (H, W, 3) float32 rgb
+
+
+def _depth(rgb: Tensor, depth: Tensor, cfg: PipelineConfig):
+    """Stage depth: the inputs as float32, the depth prefilter and the
+    disparity. Returns (rgb, filtered depth, disparity)."""
+    rgb, depth = _as_float(rgb, depth, cfg)
+    fdepth = bilateral_filter(depth, cfg.bilateral_sigma_value,
+                              cfg.bilateral_sigma_space, cfg.bilateral_radius)
+    return rgb, fdepth, depth_to_disp(fdepth)
+
+
+def _planes(tps: tps_ops.TPSResult, cfg: PipelineConfig):
+    """Stage planes: plane smoothing and the slanted-plane depth. Returns
+    (tps with the smoothed planes, plane depth)."""
+    theta_s = tps_ops.smooth_planes(tps.stats, cfg.tps)
+    tps = tps._replace(stats=tps.stats._replace(theta=theta_s))
+    return tps, tps_ops.render_plane_depth(theta_s, tps.labels, cfg.grid_h,
+                                           cfg.grid_w, cfg.tps.cell_size)
+
+
+def front_end(rgb: Tensor, depth: Tensor, cfg: PipelineConfig,
+              stamp: Tensor) -> FrontEnd:
+    """Steps 1-6 of the frame step on rgb (H, W, 3) and depth (H, W) on the
+    device (as `frame_inputs` takes them; integer inputs are converted in
+    stage depth): depth prefilter, TPS superpixels, plane smoothing,
+    slanted-plane depth and supersurfel generation."""
+    # 1. depth prefilter + disparity
+    rgb, fdepth, disp = graphs.stage("depth", _depth, rgb, depth, cfg)
+    # 2-5. TPS superpixels + plane smoothing + slanted-plane depth
+    tps = graphs.stage("tps", _segment, rgb, disp, cfg)
+    tps, plane_depth = graphs.stage("planes", _planes, tps, cfg)
+    # 6. supersurfel generation (camera frame)
+    frame = graphs.stage(
+        "supersurfels", generate_supersurfels, rgb, plane_depth, tps,
+        cfg.cam, cfg.tps, cfg.generation, cfg.fusion.range_min,
+        cfg.fusion.range_max, stamp)
+    return FrontEnd(fdepth, tps, plane_depth, frame, rgb)
+
+
+def frame_inputs(rgb, depth, cfg: PipelineConfig, dev: torch.device):
+    """rgb (H, W, 3) and depth (H, W) as float32 tensors on `dev`, depth
+    in metres: uint8/float rgb, raw uint16 depth counts (scaled by
+    cfg.depth_scale) or float32 metres, as numpy arrays or tensors.
+    Integer inputs are converted on the device."""
+    return _as_float(_upload(rgb, dev), _upload(depth, dev), cfg)
 
 
 class MotionVO(NamedTuple):
@@ -313,7 +327,6 @@ def motion_and_vo(rgb: Tensor, fe: FrontEnd, pose: Pose,
     (and with temporal heat the new heat map) to the values every rank of
     a sharded step uses."""
     dev = rgb.device
-    cam = cfg.cam
     frame = fe.frame
     is_static_sp = torch.ones((cfg.nb_superpixels,), dtype=torch.bool,
                               device=dev)
@@ -322,41 +335,60 @@ def motion_and_vo(rgb: Tensor, fe: FrontEnd, pose: Pose,
                         torch.zeros((), dtype=torch.bool, device=dev),
                         torch.zeros((), dtype=torch.int32, device=dev),
                         is_static_sp)
-    with tracing.stage("features"):
-        gray = rgb_to_gray(rgb)
-        kp = detect_and_describe(gray, cfg.vo)
+    gray, kp = graphs.stage("features", _features, rgb, cfg)
     if cfg.mod.enabled:
-        with tracing.stage("mod"):
-            # MOD reads the bilateral-filtered depth (keypoint 3D and the
-            # SE(3) depth residual need metric depth at corners)
-            is_static_sp, static_kp, mod_prev = motion_ops.detect_motion(
-                gray, fe.fdepth, mod_prev, kp, frame, fe.tps, cam, cfg.tps,
-                cfg.mod, detector=detector)
-            if agree is not None:
-                is_static_sp, static_kp, heat = agree(
-                    is_static_sp, static_kp,
-                    mod_prev.heat if cfg.mod.temporal_heat else None)
-                mod_prev = mod_prev._replace(kp_valid=static_kp)
-                if heat is not None:
-                    mod_prev = mod_prev._replace(heat=heat)
-            # dynamic superpixels are kept out of fusion, ICP and VO
-            frame = frame._replace(confidences=torch.where(
-                is_static_sp, frame.confidences,
-                torch.full_like(frame.confidences, -1.0)))
-            kp = kp._replace(valid=static_kp)
-    with tracing.stage("vo"):
-        with tracing.span("vo.match"):
-            matches, lmap = vo_ops.find_matches(lmap, kp, pose.R, pose.t,
-                                                cam, cfg.vo)
-        with tracing.span("vo.pnp"):
-            R_vo, t_vo, pnp_ok, _ = vo_ops.pnp_solve(
-                pose.R, pose.t, matches.map_pos, matches.kp_xy, matches.ok,
-                cam, cfg.vo)
+        frame, kp, mod_prev, is_static_sp = graphs.stage(
+            "mod", _mod, gray, fe.fdepth, mod_prev, kp, frame, fe.tps,
+            detector, cfg, agree)
+    matches, lmap, pose, vo_valid = graphs.stage("vo", _vo, kp, pose, lmap,
+                                                 cfg)
+    return MotionVO(frame, kp, matches, lmap, mod_prev, pose, vo_valid,
+                    matches.n, is_static_sp)
+
+
+def _features(rgb: Tensor, cfg: PipelineConfig):
+    """Stage features: the grey image and its keypoints."""
+    gray = rgb_to_gray(rgb)
+    return gray, detect_and_describe(gray, cfg.vo)
+
+
+def _mod(gray, fdepth, mod_prev, kp, frame, tps, detector, cfg, agree):
+    """Stage mod: moving-object detection; dynamic superpixels and
+    keypoints are kept out of fusion, ICP and VO. Returns (frame, kp,
+    MOD context, is_static_sp)."""
+    # MOD reads the bilateral-filtered depth (keypoint 3D and the SE(3)
+    # depth residual need metric depth at corners)
+    is_static_sp, static_kp, mod_prev = motion_ops.detect_motion(
+        gray, fdepth, mod_prev, kp, frame, tps, cfg.cam, cfg.tps, cfg.mod,
+        detector=detector)
+    if agree is not None:
+        is_static_sp, static_kp, heat = agree(
+            is_static_sp, static_kp,
+            mod_prev.heat if cfg.mod.temporal_heat else None)
+        mod_prev = mod_prev._replace(kp_valid=static_kp)
+        if heat is not None:
+            mod_prev = mod_prev._replace(heat=heat)
+    frame = frame._replace(confidences=torch.where(
+        is_static_sp, frame.confidences,
+        torch.full_like(frame.confidences, -1.0)))
+    return frame, kp._replace(valid=static_kp), mod_prev, is_static_sp
+
+
+def _vo(kp: Keypoints, pose: Pose, lmap: vo_ops.LocalMap,
+        cfg: PipelineConfig):
+    """Stage vo: matches against the local map and the PnP pose, taken
+    where VO is valid. Returns (matches, local map, pose, VO valid)."""
+    with tracing.span("vo.match"):
+        matches, lmap = vo_ops.find_matches(lmap, kp, pose.R, pose.t,
+                                            cfg.cam, cfg.vo)
+    with tracing.span("vo.pnp"):
+        R_vo, t_vo, pnp_ok, _ = vo_ops.pnp_solve(
+            pose.R, pose.t, matches.map_pos, matches.kp_xy, matches.ok,
+            cfg.cam, cfg.vo)
     vo_valid = pnp_ok & (matches.n >= cfg.vo.min_matches)
     pose = Pose(torch.where(vo_valid, R_vo, pose.R),
                 torch.where(vo_valid, t_vo, pose.t))
-    return MotionVO(frame, kp, matches, lmap, mod_prev, pose, vo_valid,
-                    matches.n, is_static_sp)
+    return matches, lmap, pose, vo_valid
 
 
 def fern_codes(rgb: Tensor, fdepth: Tensor, cfg: PipelineConfig) -> Tensor:
@@ -384,12 +416,11 @@ def update_local_map(mv: MotionVO, fdepth: Tensor, labels: Tensor,
     """Step 12: local-map maintenance with the final fused pose."""
     if not cfg.enable_sparse_vo:
         return lmap
-    with tracing.stage("local_map"):
-        mod_args = dict(labels=labels, static_sp=mv.is_static_sp) \
-            if cfg.mod.enabled else {}
-        return vo_ops.update_local_map(lmap, mv.kp, fdepth, mv.matches,
-                                       pose.R, pose.t, cfg.cam, cfg.vo,
-                                       **mod_args)
+    # MOD's labels and static superpixels (static_kp is not passed)
+    mod = (labels, mv.is_static_sp) if cfg.mod.enabled else (None, None)
+    return graphs.stage("local_map", vo_ops.update_local_map, lmap, mv.kp,
+                        fdepth, mv.matches, pose.R, pose.t, cfg.cam, cfg.vo,
+                        None, *mod)
 
 
 def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
@@ -403,13 +434,48 @@ def process_frame(state: SLAMState, rgb, depth, cfg: PipelineConfig):
         return _step(state, rgb, depth, cfg)
 
 
+def _fusion(model_in: ModelState, frame: Supersurfels, labels: Tensor,
+            plane_depth: Tensor, pose: Pose, icp_valid: Tensor,
+            stamp: Tensor, traj: Tensor, vis_peak: Tensor,
+            dropped_total: Tensor, cfg: PipelineConfig):
+    """Stage fusion: the model update / bootstrap, then this frame's pose
+    into the on-device trajectory ring and the state's counters. Returns
+    (model, fusion stats, next stamp, trajectory, peak visible, dropped
+    total).
+
+    Two default-off protections against tracking loss, for frames whose
+    ICP was gate-rejected against a live model (the pose is VO-only and
+    may drift): insert_requires_icp inserts no new surfels while fusion,
+    visibility and filtering stay live; freeze_on_tracking_loss keeps the
+    whole model and zeroes the stats. Both are selects on the device, no
+    host wait."""
+    icp_ok = icp_valid | (model_in.nb_supersurfels == 0)
+    gate_insert = cfg.fusion.insert_requires_icp and cfg.enable_icp
+    model, fusion_stats = fusion_ops.update_model(
+        model_in, frame, labels, plane_depth, pose.R, pose.t, cfg.cam,
+        cfg.fusion, cfg.conf_thresh, stamp,
+        allow_insert=icp_ok if gate_insert else None)
+    if cfg.fusion.freeze_on_tracking_loss and cfg.enable_icp:
+        model, fusion_stats = fusion_ops.where_tree(
+            icp_ok, (model, fusion_stats),
+            (model_in, fusion_ops.FusionStats(*(
+                torch.zeros_like(v) for v in fusion_stats))))
+    # frames past max_frames overwrite the last slot of the ring
+    traj_row = torch.cat([pose.R.reshape(9), pose.t]).to(torch.float32)
+    slot = torch.clamp(stamp, max=cfg.max_frames - 1).to(torch.int64)
+    traj = traj.index_copy(0, slot[None], traj_row[None])
+    return (model, fusion_stats, stamp + 1, traj,
+            torch.maximum(vis_peak, model.nb_visible),
+            dropped_total + fusion_stats.n_dropped)
+
+
 def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     dev = state.stamp.device
-    rgb, depth = frame_inputs(rgb, depth, cfg, dev)
+    rgb, depth = _upload(rgb, dev), _upload(depth, dev)
 
     cam = cfg.cam
     fe = front_end(rgb, depth, cfg, state.stamp)
-    fdepth, tps, plane_depth = fe.fdepth, fe.tps, fe.plane_depth
+    rgb, fdepth, tps, plane_depth = fe.rgb, fe.fdepth, fe.tps, fe.plane_depth
 
     # 7-8. moving-object detection + sparse feature VO
     mv = motion_and_vo(rgb, fe, state.pose, state.local_map, state.mod_prev,
@@ -419,11 +485,12 @@ def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     vo_valid, vo_matches = mv.vo_valid, mv.vo_matches
 
     # 9. dense symmetric ICP refinement against the visible model
-    with tracing.stage("icp"):
-        icp, pose, target_maps = _icp_step(state, frame, tps.labels,
-                                           plane_depth, pose, cfg)
+    icp, pose, target_maps = graphs.stage("icp", _icp_step, state.model,
+                                          frame, tps.labels, plane_depth,
+                                          pose, cfg)
 
-    # 10-11. fern place recognition + global loop closure
+    # 10-11. fern place recognition + global loop closure, op by op (the
+    # gate is read on the host)
     kf_store = state.kf_store
     prev_fern_id = state.prev_fern_id
     last_lc = state.last_lc_stamp
@@ -477,25 +544,11 @@ def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     # 12. local-map maintenance with the final fused pose
     lmap = update_local_map(mv, fdepth, tps.labels, pose, lmap, cfg)
 
-    # 13. model update / bootstrap. Two default-off protections against
-    # tracking loss, for frames whose ICP was gate-rejected against a live
-    # model (the pose is VO-only and may drift): insert_requires_icp
-    # inserts no new surfels while fusion, visibility and filtering stay
-    # live; freeze_on_tracking_loss keeps the whole model and zeroes the
-    # stats. Both are selects on the device, no host wait.
-    model_in = state.model._replace(surfels=model_surfels)
-    icp_ok = icp.valid | (state.model.nb_supersurfels == 0)
-    gate_insert = cfg.fusion.insert_requires_icp and cfg.enable_icp
-    with tracing.stage("fusion"):
-        model, fusion_stats = fusion_ops.update_model(
-            model_in, frame, tps.labels, plane_depth, pose.R, pose.t, cam,
-            cfg.fusion, cfg.conf_thresh, state.stamp,
-            allow_insert=icp_ok if gate_insert else None)
-        if cfg.fusion.freeze_on_tracking_loss and cfg.enable_icp:
-            model, fusion_stats = fusion_ops.where_tree(
-                icp_ok, (model, fusion_stats),
-                (model_in, fusion_ops.FusionStats(*(
-                    torch.zeros_like(v) for v in fusion_stats))))
+    # 13. model update / bootstrap, the trajectory ring
+    model, fusion_stats, stamp, traj, vis_peak, dropped_total = graphs.stage(
+        "fusion", _fusion, state.model._replace(surfels=model_surfels),
+        frame, tps.labels, plane_depth, pose, icp.valid, state.stamp,
+        state.traj, state.vis_peak, state.dropped_total, cfg)
 
     # 14. new-keyframe snapshot (Ferns::addKeyFrame), masked on the device
     if use_ferns:
@@ -504,20 +557,11 @@ def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
                 kf_store, codes, pose, state.stamp, kp, kp_p3d, kp_depth_ok,
                 frame, when=is_new)
 
-    # this frame's pose into the on-device trajectory ring (frames past
-    # max_frames overwrite the last slot)
-    traj_row = torch.cat([pose.R.reshape(9), pose.t]).to(torch.float32)
-    slot = torch.clamp(state.stamp, max=cfg.max_frames - 1).to(torch.int64)
-    traj = state.traj.index_copy(0, slot[None], traj_row[None])
-
     new_state = SLAMState(
-        model=model, pose=pose, stamp=state.stamp + 1, local_map=lmap,
+        model=model, pose=pose, stamp=stamp, local_map=lmap,
         mod_prev=mod_prev, kf_store=kf_store, prev_fern_id=prev_fern_id,
-        last_lc_stamp=last_lc, lc_count=lc_count,
-        vis_peak=torch.maximum(state.vis_peak, model.nb_visible),
-        dropped_total=state.dropped_total + fusion_stats.n_dropped,
-        traj=traj,
-        detector=state.detector,
+        last_lc_stamp=last_lc, lc_count=lc_count, vis_peak=vis_peak,
+        dropped_total=dropped_total, traj=traj, detector=state.detector,
     )
     out = FrameOutput(
         pose=pose,
@@ -543,19 +587,26 @@ def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
 
 class SupersurfelFusion:
     """Host-side runner: feeds numpy frames to `process_frame` and collects
-    TUM-format poses."""
+    TUM-format poses. On a CUDA device the stages of its steps run as CUDA
+    graphs (`graphs.py`), captured in the second frame; the state and the
+    outputs it returns are never written by a later frame."""
 
     def __init__(self, cfg: PipelineConfig,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.state = init_state(cfg, device)
+        dev = self.state.stamp.device
+        self.graphs = graphs.StageGraphs(dev) if dev.type == "cuda" else None
         self.stamps: list[float] = []
         self._cap_warned = False
 
     def process(self, rgb: np.ndarray, depth: np.ndarray,
                 timestamp: Optional[float] = None) -> FrameOutput:
-        # integer encodings stay intact: process_frame converts on-device
-        self.state, out = process_frame(self.state, rgb, depth, self.cfg)
+        # integer encodings stay intact: process_frame converts on-device.
+        # It is called through the module, where a test may patch it.
+        run = nullcontext() if self.graphs is None else self.graphs.step()
+        with run:
+            self.state, out = process_frame(self.state, rgb, depth, self.cfg)
         if timestamp is not None:
             self.stamps.append(timestamp)
             if (len(self.stamps) > self.cfg.max_frames
@@ -583,3 +634,11 @@ class SupersurfelFusion:
     @property
     def pose(self) -> Pose:
         return self.state.pose
+
+    def graph_report(self, frames: list) -> dict:
+        """How far the CUDA graphs engage: the stages captured and the host
+        ms of their capture (none on the CPU), and over the recorder's
+        `frames` the mean stages per frame replayed and run eagerly."""
+        rep = self.graphs.report() if self.graphs is not None \
+            else {"captured": [], "capture_ms": 0.0}
+        return {**rep, **tracing.stage_counts(frames)}

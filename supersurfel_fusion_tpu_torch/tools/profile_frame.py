@@ -92,6 +92,21 @@ def stage_launches(events, per: int):
     return {k: v / per for k, v in out.items()}, len(launches) / per
 
 
+def kernel_runs(prof, names) -> dict:
+    """Runs on the card of the kernels whose names hold each of `names`,
+    in a finished `torch.profiler.profile`: every kernel the CUDA trace
+    holds, those a CUDA graph's replay runs included. Read from the raw
+    trace events (a trace of many frames makes the profiler's own tables
+    slow to build)."""
+    runs = dict.fromkeys(names, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            for k in names:
+                runs[k] += k in name
+    return runs
+
+
 def host_syncs(step) -> list:
     """Run step() once with CUDA sync debugging on; the port's source
     lines (innermost frame in the package) of the operations that made

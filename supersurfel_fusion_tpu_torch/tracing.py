@@ -7,12 +7,15 @@ Every range the port opens goes through this module:
   the recorder numbers the frames itself;
 * `stage(name)`: a stage of the step. It records a span "ssf.<name>"
   around the profiler range `record_function("ssf.<name>")`, which the
-  port has always opened there;
+  port has always opened there, and counts the stage as run eagerly or,
+  with `replay=True`, as a CUDA graph replayed (`graphs.py`);
 * `span(name)`: a part of a stage ("tps.rgb", "features.score", ...),
   recorded here only: the profiler sees the stage ranges alone, side by
   side, as it did before there was a recorder.
 
-A span holds its name, its parent (an index into its frame's spans, -1
+A stage's parts are recorded where its Python runs: on a replayed stage
+they are not, since the replay runs the graph captured from them. A span
+holds its name, its parent (an index into its frame's spans, -1
 for the frame span) and its start and end in Unix-epoch nanoseconds
 (`time.time_ns()`), the clock of `torch.profiler`'s events, so that a
 reader can set the spans against a profiler trace of the same frames.
@@ -36,19 +39,24 @@ from typing import NamedTuple
 
 from torch.profiler import record_function
 
-# frames: a whole 51 s benchmark window of a step of 100 ms or more (the
-# 640x480 step takes 145-460 ms on one H100)
-CAPACITY = 512
+# frames: a whole 51 s benchmark window of a step of 12.5 ms or more (the
+# 640x480 step with its stages as CUDA graphs takes 31-40 ms on one H100,
+# 1300-1650 frames a window)
+CAPACITY = 4096
 FRAME = "frame"
 _now = time.time_ns   # the profiler's clock (Unix epoch ns)
 
 
 class Frame(NamedTuple):
     """One recorded frame step: its number and its spans, each a list
-    [name, parent index, start ns, end ns]; spans[0] is the frame span."""
+    [name, parent index, start ns, end ns]; spans[0] is the frame span.
+    `replays` and `eager` count its stages replayed as CUDA graphs and run
+    op by op."""
 
     number: int
     spans: list
+    replays: int = 0
+    eager: int = 0
 
     @property
     def start_ns(self) -> int:
@@ -68,6 +76,7 @@ class Recorder:
         self.count = 0         # frames numbered so far
         self._spans = None     # the open frame's spans, None outside one
         self._stack: list = []  # indices of the open spans
+        self._counts = [0, 0]   # the open frame's replayed, eager stages
 
 
 RECORDER = Recorder()
@@ -102,12 +111,18 @@ class _Span:
 
 class _Stage(_Span):
     """A stage: the recorder's span "ssf.<name>" around the profiler
-    range of the same name."""
+    range of the same name, counted as replayed or eager."""
 
-    __slots__ = ("rf",)
+    __slots__ = ("rf", "replay")
+
+    def __init__(self, name: str, replay: bool):
+        self.name = name
+        self.replay = replay
 
     def __enter__(self):
         _Span.__enter__(self)
+        if self.rec is not None:
+            RECORDER._counts[not self.replay] += 1
         self.rf = record_function(self.name)
         self.rf.__enter__()
         return self
@@ -129,6 +144,7 @@ class _Frame:
         if rec.enabled:
             rec._spans = [[FRAME, -1, _now(), 0]]
             rec._stack = [0]
+            rec._counts = [0, 0]
         return self
 
     def __exit__(self, exc_type, *exc):
@@ -139,7 +155,7 @@ class _Frame:
         spans[0][3] = _now()
         rec._spans, rec._stack = None, []
         if exc_type is None:   # a step that raised is not kept
-            rec.frames.append(Frame(self.number, spans))
+            rec.frames.append(Frame(self.number, spans, *rec._counts))
         return False
 
 
@@ -148,10 +164,11 @@ def frame() -> _Frame:
     return _Frame()
 
 
-def stage(name: str) -> _Stage:
+def stage(name: str, replay: bool = False) -> _Stage:
     """The stage `name`: a recorder span "ssf.<name>" around the profiler
-    range of the same name."""
-    return _Stage("ssf." + name)
+    range of the same name; `replay`: the stage is a CUDA graph's
+    replay."""
+    return _Stage("ssf." + name, replay)
 
 
 def span(name: str) -> _Span:
@@ -180,3 +197,11 @@ def stage_ms(frames: list) -> dict:
         for name, _, s, e in f.spans:
             tot[name] = tot.get(name, 0) + (e - s)
     return {k: 1e-6 * v / len(frames) for k, v in tot.items()}
+
+
+def stage_counts(frames: list) -> dict:
+    """Mean stages per frame over `frames` replayed as CUDA graphs and run
+    op by op."""
+    n = max(len(frames), 1)
+    return {"replays_per_frame": sum(f.replays for f in frames) / n,
+            "eager_per_frame": sum(f.eager for f in frames) / n}

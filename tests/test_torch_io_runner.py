@@ -477,6 +477,11 @@ def test_runner_one_frame_at_640x480(tmp_path):
     assert {"frame", "ssf.tps", "tps.rgbd", "ssf.ferns", "ssf.loop_closure",
             "ssf.fusion", "fusion.filter"} <= set(sm)
     assert 0 < sm["ssf.tps"] < sm["frame"]
+    # on the CPU no stage is a CUDA graph: the twelve stage calls of a
+    # loop-closure frame (ferns twice) all run op by op
+    assert res["graphs"] == {"captured": [], "capture_ms": 0.0,
+                             "replays_per_frame": 0.0,
+                             "eager_per_frame": 12.0}
     rows = ttum.read_trajectory_file(str(traj))
     assert list(rows) == [stamps[0]]
     np.testing.assert_allclose(rows[stamps[0]],

@@ -141,3 +141,40 @@ def test_spans_outside_a_frame_are_not_stored(monkeypatch):
     with tracing.frame():
         pass
     assert [f.number for f in tracing.frames()] == [2]
+
+
+def test_cpu_runner_runs_every_stage_eagerly():
+    """On the CPU `SupersurfelFusion` has no CUDA graphs: every stage of
+    every frame is counted as run op by op, none as replayed, and the
+    runner's report says so."""
+    cfg = small_config(tcfg)
+    sf = tpipe.SupersurfelFusion(cfg, device="cpu")
+    assert sf.graphs is None
+    first = tracing.RECORDER.count
+    for rgb, depth, *_ in synthetic.frames(cfg.cam, 2):
+        sf.process(rgb, depth)
+    frames = tracing.frames(first)
+    assert [(f.replays, f.eager) for f in frames] == [(0, len(STAGES))] * 2
+    assert sf.graph_report(frames) == {
+        "captured": [], "capture_ms": 0.0, "replays_per_frame": 0.0,
+        "eager_per_frame": float(len(STAGES))}
+
+
+def test_stage_counts_of_recorded_frames(monkeypatch):
+    """A stage opened with `replay=True` counts as replayed, any other as
+    eager; parts and spans outside a frame count nothing."""
+    monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
+    with tracing.stage("depth"):
+        pass
+    for replayed in (2, 0):
+        with tracing.frame():
+            for i in range(3):
+                with tracing.stage("s", replay=i < replayed):
+                    with tracing.span("s.part"):
+                        pass
+    frames = tracing.frames()
+    assert [(f.replays, f.eager) for f in frames] == [(2, 1), (0, 3)]
+    assert tracing.stage_counts(frames) == {"replays_per_frame": 1.0,
+                                            "eager_per_frame": 2.0}
+    assert tracing.stage_counts([]) == {"replays_per_frame": 0.0,
+                                        "eager_per_frame": 0.0}
