@@ -19,23 +19,47 @@ checks file names the numbers compared and their limits.
 
 The reference is `slam_bench/reference`, a frozen copy of the port's
 plain path that imports nothing of the program, run on the same device
-after the measured window. Its independence from the program rests on the
-repo's parity tests (`tests/test_torch_*.py`), which hold the port the
-copy was taken from against the JAX package on the CPU: a fault of that
-port which they miss, the reference shares. Its control (`control`) is the same reference
-computed with TF32 on for matmuls and cuDNN, the precision below the
-float32 the configurations state.
+after the measured window. Its independence from the program rests on
+the repo's parity tests (`tests/test_torch_*.py`), which hold the port
+the copy was taken from against the JAX package on the CPU: a fault of
+that port which they miss, the reference shares. Its control
+(`control`) is the same reference computed with TF32 on for matmuls and
+cuDNN, the precision below the float32 the configurations state.
+
+A configuration file may name another reference package under the
+benchmark's folder with a top-level key "reference" (imported as
+`slam_bench.<name>`, with the same `config.PipelineConfig`,
+`pipeline.init_state` and `pipeline.process_frame`); such a package may
+add numbers of its own (`numbers(p_out, p_post, r_out, r_post) ->
+dict`), which are merged into the shared ones.
 """
 
 from __future__ import annotations
 
+import importlib
 import math
+import re
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 Tensor = torch.Tensor
+DEFAULT_REFERENCE = "reference"
+# a package path under slam_bench/: dotted identifiers, nothing that leads
+# out of the folder
+PACKAGE = re.compile(r"^[A-Za-z_]\w*(\.[A-Za-z_]\w*)*$", re.ASCII)
+
+
+def reference_package(cfg_doc: dict) -> str:
+    """The module name of the reference package that a configuration
+    document names (its top-level "reference", by default
+    `slam_bench.reference`)."""
+    name = cfg_doc.get("reference", DEFAULT_REFERENCE)
+    if not isinstance(name, str) or not PACKAGE.match(name):
+        raise ValueError(f"reference {name!r}: not a package name under "
+                         f"slam_bench/")
+    return f"slam_bench.{name}"
 
 
 class StateMismatch(RuntimeError):
@@ -151,15 +175,25 @@ def numbers(p_out, p_post, r_out, r_post) -> dict:
     return out
 
 
+def _names(nums: dict) -> set:
+    """The names that `aggregate` makes of a frame's numbers."""
+    return set(nums) | {f"{k}_med" for k in nums}
+
+
 class Reference:
     """The reference's frame step for one configuration document on one
-    device: its own config, initial state (template) and detector."""
+    device: its own config, initial state (template) and detector, from
+    the package that the document names (`reference_package`)."""
 
     def __init__(self, cfg_doc: dict, root, device):
         from slam_bench import manifest
-        from slam_bench.reference import config as rconfig
-        from slam_bench.reference import pipeline as rpipe
 
+        name = reference_package(cfg_doc)
+        pkg = importlib.import_module(name)
+        rconfig = importlib.import_module(f"{name}.config")
+        rpipe = importlib.import_module(f"{name}.pipeline")
+        self.name = name
+        self.own_numbers = getattr(pkg, "numbers", None)
         self.pipe = rpipe
         self.cfg = manifest.build_config(rconfig.PipelineConfig, cfg_doc,
                                          root)
@@ -179,6 +213,20 @@ class Reference:
             return self.pipe.process_frame(self.template, rgb, depth,
                                            self.cfg)
 
+    def numbers(self, p_out, p_post, r_out, r_post) -> dict:
+        """`numbers` of one frame, with the package's own merged in; a
+        name of the package's that `aggregate` would make twice raises."""
+        out = numbers(p_out, p_post, r_out, r_post)
+        if self.own_numbers is None:
+            return out
+        more = self.own_numbers(p_out, p_post, r_out, r_post)
+        clash = sorted(_names(out) & _names(more))
+        if clash:
+            raise ValueError(f"{self.name}.numbers gives "
+                             f"{clash}, which the shared numbers give")
+        out.update(more)
+        return out
+
 
 def compare(samples, ref: Reference, frames) -> dict:
     """Each number over the samples: its worst (the largest) under its own
@@ -193,7 +241,7 @@ def compare(samples, ref: Reference, frames) -> dict:
             r_post, r_out = ref.first(rgb, depth)
         else:
             r_post, r_out = ref.step(pre, rgb, depth)
-        for k, v in numbers(p_out, p_post, r_out, r_post).items():
+        for k, v in ref.numbers(p_out, p_post, r_out, r_post).items():
             per.setdefault(k, []).append(v)
     return aggregate(per)
 
@@ -210,7 +258,7 @@ def control(samples, ref: Reference, frames) -> dict:
         else:
             r_post, r_out = ref.step(pre, rgb[idx], depth[idx])
             c_post, c_out = ref.step(pre, rgb[idx], depth[idx], True)
-        for k, v in numbers(c_out, c_post, r_out, r_post).items():
+        for k, v in ref.numbers(c_out, c_post, r_out, r_post).items():
             per.setdefault(k, []).append(v)
     return aggregate(per)
 

@@ -6,11 +6,23 @@ Each fault patches a function of the program's modules while the block
 runs; the reference (`slam_bench/reference`) imports nothing of the
 program and runs unchanged. A cell's batch is one frame on one card, so
 there is no half batch and no exchange between chips to leave out.
+
+The faults are those of `FAULTS` and, by name, the files
+`fault_plants/<name>.py` under the benchmark's folder: each defines
+`plant(pipeline, ops) -> (module, attribute, replacement)`, as the
+functions of `FAULTS` do, and `NEEDS`, the dotted `pipeline` keys that
+have to be on in a cell's configuration for the fault to exist there.
 """
 
 from __future__ import annotations
 
+import importlib.util
 from contextlib import contextmanager
+from pathlib import Path
+
+from slam_bench.manifest import NAME
+
+HERE = Path(__file__).resolve().parent
 
 
 def _state_unchanged(pipeline, ops):
@@ -87,15 +99,45 @@ FAULTS = {
 }
 # faults that only a cell with MOD on can have
 MOD_FAULTS = ("mod_all_static",)
+NEEDS = {name: ["mod.enabled"] for name in MOD_FAULTS}
+
+
+def lookup(name: str, data=None):
+    """(plant, needs) of fault `name`: from `FAULTS`, else from
+    `<data>/fault_plants/<name>.py` (`data` the benchmark's folder, by
+    default this package's)."""
+    if name in FAULTS:
+        return FAULTS[name], NEEDS.get(name, [])
+    path = Path(data or HERE) / "fault_plants" / f"{name}.py"
+    if not NAME.match(name) or not path.is_file():
+        raise KeyError(f"no fault {name!r} in faults.FAULTS or at {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"slam_bench_fault_{name.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.plant, list(mod.NEEDS)
+
+
+def unmet(name: str, cfg, data=None) -> list[str]:
+    """The keys of the fault's NEEDS that are not on in `cfg`, a built
+    `PipelineConfig`."""
+    missing = []
+    for key in lookup(name, data)[1]:
+        v = cfg
+        for part in key.split("."):
+            v = getattr(v, part, None)
+        if not v:
+            missing.append(key)
+    return missing
 
 
 @contextmanager
-def planted(name: str):
+def planted(name: str, data=None):
     """The program with fault `name` planted while the block runs."""
     from supersurfel_fusion_tpu_torch import ops, pipeline
     from supersurfel_fusion_tpu_torch.ops import motion  # noqa: F401
 
-    mod, attr, fn = FAULTS[name](pipeline, ops)
+    mod, attr, fn = lookup(name, data)[0](pipeline, ops)
     old = getattr(mod, attr)
     setattr(mod, attr, fn)
     try:

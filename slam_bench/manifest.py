@@ -11,7 +11,14 @@ in a file of its own under the benchmark's folder:
 * a layer that a metric's suffix names: `layers/<layer>.json`, the
   `ssf.<stage>` ranges it owns;
 * a cell's comparison: `checks/<cell>.json`, the numbers compared with the
-  reference and their limits.
+  reference and their limits, and optionally the event frames compared
+  in every run (`run.Events`);
+* a configuration's reference, where it is not `slam_bench/reference`:
+  the package `slam_bench/<name>/` that the configuration file's
+  "reference" key names (`check.reference_package`), with numbers of its
+  own if it defines `numbers`;
+* a fault planted to show that a cell's comparison catches it:
+  `fault_plants/<name>.py` (`faults.lookup`).
 
 So a later change adds a cell, a configuration, a mix or a metric by adding
 files and entries, and edits none.

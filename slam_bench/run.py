@@ -20,6 +20,15 @@ module under `metrics/`. After the window the reference (`check.py`)
 follows sampled frames and decides `correct`; each number compared is
 printed beside its limit, last on standard error and last in the line.
 
+The frames compared are the first, a blind sample of the window drawn
+from the seed (`Sampler`) and, where the cell's checks file names
+`"events": {"output": <FrameOutput field>, "keep": n}`, up to n of the
+window's frames whose output field is truthy (`Events`), so that a
+mechanism that fires on few frames is compared in every run. Such a run
+is not correct unless it compared one, and its traced stretch goes on
+past `trace_frames` until it holds one, up to the traffic file's
+`trace_frames_max` frames (default `trace_frames`).
+
 There is no CPU fallback: without a CUDA card the command exits 2 and
 prints no result.
 """
@@ -76,21 +85,16 @@ def card_line() -> str:
         return "nvidia-smi unavailable"
 
 
-class Sampler:
-    """Frames drawn for the check: one at a seeded offset in each block of
-    `every` window frames, `keep` of them kept by reservoir sampling, so
-    the sample is spread over the whole window however long it runs."""
+class Reservoir:
+    """`keep` of the items added, each equally likely, by reservoir
+    sampling on a random stream of its own from the seed and `stream`."""
 
-    def __init__(self, seed: int, every: int, keep: int):
+    def __init__(self, seed: int, keep: int, stream: int):
         self.rng = np.random.default_rng([int(seed) & 0xFFFFFFFF,
-                                          int(seed) >> 32, 0x5EED])
-        self.every, self.keep = every, keep
-        self.offset = int(self.rng.integers(0, every))
+                                          int(seed) >> 32, stream])
+        self.keep = keep
         self.seen = 0
         self.kept: list = []
-
-    def wants(self, i: int) -> bool:
-        return i % self.every == self.offset
 
     def add(self, item) -> None:
         self.seen += 1
@@ -101,13 +105,79 @@ class Sampler:
             if j < self.keep:
                 self.kept[j] = item
 
+
+class Sampler(Reservoir):
+    """Frames drawn for the check: one at a seeded offset in each block of
+    `every` window frames, `keep` of them kept by reservoir sampling, so
+    the sample is spread over the whole window however long it runs."""
+
+    def __init__(self, seed: int, every: int, keep: int):
+        super().__init__(seed, keep, 0x5EED)
+        self.every = every
+        self.offset = int(self.rng.integers(0, every))
+
+    def wants(self, i: int) -> bool:
+        return i % self.every == self.offset
+
     def next_block(self, i: int) -> None:
         if i % self.every == self.every - 1:
             self.offset = int(self.rng.integers(0, self.every))
 
 
+class Events(Reservoir):
+    """The frames whose output field `output` is truthy, `keep` of them
+    kept by reservoir sampling on a stream apart from `Sampler`'s. The
+    field is read once the frame's pose is on the host: a host value, or
+    a tensor that the pose read has already waited for. `window` and
+    `traced` list the positions of such frames in the window and in the
+    traced stretch."""
+
+    STREAM = 0xE7E27
+
+    def __init__(self, seed: int, output: str, keep: int):
+        super().__init__(seed, keep, self.STREAM)
+        self.output = output
+        self.window: list = []
+        self.traced: list = []
+
+    @classmethod
+    def of(cls, checks: dict, seed: int):
+        """The event sample that a checks file names, or None."""
+        ev = checks.get("events")
+        return cls(seed, ev["output"], int(ev["keep"])) if ev else None
+
+    def fired(self, out) -> bool:
+        v = getattr(out, self.output)
+        return v is not None and bool(v)
+
+
+def draw(sampler: Sampler, events, j: int, item) -> None:
+    """Window frame j, once its latency is taken, into the blind sample
+    if it was drawn and into the event sample if it fired. `item` is
+    (rendered frame index, state before, outputs, state after)."""
+    if sampler.wants(j):
+        sampler.add(item)
+    if events is not None and events.fired(item[2]):
+        events.window.append(j)
+        events.add(item)
+    sampler.next_block(j)
+
+
+def samples(first, sampler: Sampler, events) -> list:
+    """The frames the check compares: the first, the blind sample, and the
+    event frames that the blind sample does not hold already."""
+    out = [first] + sampler.kept
+    if events is not None:
+        out += [e for e in events.kept
+                if all(e is not s for s in sampler.kept)]
+    return out
+
+
 class Ctx:
-    """What a metric's reader sees of a run."""
+    """What a metric's reader sees of a run. `event_frames` and
+    `traced_event_frames` hold the positions, in the window's latencies
+    and in the traced stretch, of the frames that fired the cell's event
+    output ([] where its checks file names none)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -172,9 +242,13 @@ def play(sf, rgb, depth, i: int):
     return out, pose
 
 
-def window(sf, frames, start: int, seconds: float, sampler: Sampler):
-    """Frames back to back for `seconds`; returns (latencies s, window s,
-    next frame index, frames with a non-finite pose)."""
+def window(sf, frames, start: int, seconds: float, sampler: Sampler,
+           events: Events | None = None):
+    """Frames back to back for `seconds`, drawn for the check as they
+    come (`draw`); returns (latencies s, window s, next frame index,
+    frames with a non-finite pose). With `events`, each frame's state
+    before it is held for the frame's own duration, to go into the event
+    sample if it fires."""
     from slam_bench.scene import frame_index
 
     rgb, depth = frames
@@ -183,24 +257,27 @@ def window(sf, frames, start: int, seconds: float, sampler: Sampler):
     t_start = time.perf_counter()
     while True:
         j = i - start
-        pre = sf.state if sampler.wants(j) else None
+        pre = sf.state if sampler.wants(j) or events is not None else None
         t0 = time.perf_counter()
         out, pose = play(sf, rgb, depth, i)
         t1 = time.perf_counter()
         lat.append(t1 - t0)
         bad += not np.all(np.isfinite(pose))
-        if pre is not None:
-            sampler.add((frame_index(i, len(rgb)), pre, out, sf.state))
-        sampler.next_block(j)
+        draw(sampler, events, j, (frame_index(i, len(rgb)), pre, out,
+                                  sf.state))
+        del pre
         i += 1
         if t1 - t_start >= seconds:
             break
     return lat, t1 - t_start, i, bad
 
 
-def traced(sf, frames, start: int, n: int):
-    """n frames under torch.profiler; returns (Trace, labels of each
-    frame, frames with a non-finite pose)."""
+def traced(sf, frames, start: int, n: int, events: Events | None = None,
+           cap: int = 0):
+    """n frames under torch.profiler and, with `events`, on until the
+    stretch holds a frame that fires it or has run `cap` frames; returns
+    (Trace, labels of each frame, frames with a non-finite pose). The
+    positions of the frames that fired go to `events.traced`."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -208,16 +285,21 @@ def traced(sf, frames, start: int, n: int):
 
     rgb, depth = frames
     labels, bad = [], 0
+    cap = max(n, cap) if events is not None else n
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("bench.stretch"):
-            for i in range(start, start + n):
-                out, pose = play(sf, rgb, depth, i)
+            k = 0
+            while k < n or (k < cap and not events.traced):
+                out, pose = play(sf, rgb, depth, start + k)
                 labels.append(out.labels)
                 bad += not np.all(np.isfinite(pose))
+                if events is not None and events.fired(out):
+                    events.traced.append(k)
+                k += 1
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    tr = Trace.from_profiler(prof, n)
+    tr = Trace.from_profiler(prof, k)
     return tr, [x.cpu().numpy() for x in labels], bad
 
 
@@ -257,18 +339,27 @@ def main(argv=None, *, root=None, data=None, device=None) -> int:
         f"{mix['warmup_frames']} warm-up frames)")
 
     sampler = Sampler(args.seed, int(checks["every"]), int(checks["keep"]))
+    events = Events.of(checks, args.seed)
     start = int(mix["warmup_frames"])
-    lat, win_s, nxt, bad = window(sf, frames, start, args.seconds, sampler)
+    lat, win_s, nxt, bad = window(sf, frames, start, args.seconds, sampler,
+                                  events)
     q = np.percentile(1e3 * np.asarray(lat), [0, 10, 50, 90, 100])
     log(f"window {win_s:.3f} s, {len(lat)} frames, "
         f"{1e3 * win_s / len(lat):.3f} ms/frame; frame ms min/p10/median/"
         f"p90/max {' '.join(f'{x:.1f}' for x in q)}")
     log("frame ms: " + " ".join(f"{1e3 * x:.1f}" for x in lat))
+    if events is not None:
+        log(f"event frames ({events.output}): {len(events.window)} in the "
+            f"window, at {events.window}")
     trace, labels = None, []
     if args.trace:
-        trace, labels, bad_t = traced(sf, frames, nxt,
-                                      int(mix["trace_frames"]))
+        n = int(mix["trace_frames"])
+        trace, labels, bad_t = traced(
+            sf, frames, nxt, n, events, int(mix.get("trace_frames_max", n)))
         bad += bad_t
+        if events is not None:
+            log(f"event frames ({events.output}) in the traced stretch: "
+                f"{events.traced}")
         log(f"traced {trace.frames} frames in {trace.window_s:.3f} s, "
             f"{len(trace.ops)} device operations "
             f"({trace.unlinked_ops} not linked to a call)")
@@ -281,19 +372,27 @@ def main(argv=None, *, root=None, data=None, device=None) -> int:
     from slam_bench import check
 
     ok, shown = False, {}
+    compared = samples(first, sampler, events)
     try:
         ref = check.Reference(bench.config(cell["config"]), root, device)
-        worst = check.compare([first] + sampler.kept, ref, frames)
-        log(f"readings over {len(sampler.kept) + 1} frames: "
-            f"{json.dumps(worst)}")
+        worst = check.compare(compared, ref, frames)
+        log(f"readings over {len(compared)} frames: {json.dumps(worst)}")
         ok, shown = check.verdict(worst, checks["numbers"])
     except Exception as e:  # the check's failure is a wrong answer
         log(f"the comparison with the reference failed: "
             f"{type(e).__name__}: {e}")
     ok = ok and bad == 0
+    if events is not None:
+        # a run that compared no event frame has not checked what fires
+        n_ev = len(events.kept)
+        log(f"event frames compared: {n_ev} of {len(events.window)}")
+        ok = ok and n_ev > 0
+        shown["event_frames"] = {"value": n_ev, "limit": "at least 1"}
 
     ctx = Ctx(bench=bench, cell=cell, cfg=cfg, card=card, setup_s=setup_s,
-              latencies_s=lat, window_s=win_s, trace=trace, labels=labels)
+              latencies_s=lat, window_s=win_s, trace=trace, labels=labels,
+              event_frames=events.window if events else [],
+              traced_event_frames=events.traced if events else [])
     metrics = {}
     for m in bench.metrics_for(cell["name"], bool(args.trace)):
         v = bench.reader(m["name"])(ctx, m["name"])

@@ -3,10 +3,13 @@ whole top-level module names."""
 
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 
-from slam_bench.tests.conftest import REPO
+import pytest
+
+from slam_bench.tests.conftest import BENCH, REPO
 
 PROBE = """
 import sys
@@ -21,6 +24,22 @@ for group in ("end_to_end", "per_layer"):
         b.reader(m["name"])
 from slam_bench.run import forbidden_modules
 print(forbidden_modules())
+"""
+
+
+# every reference package that a configuration names, the default and the
+# tests' stub
+REFERENCES = sorted({json.loads(p.read_text()).get("reference", "reference")
+                     for p in (BENCH / "configs").glob("*.json")}
+                    | {"reference", "tests.stub_reference"})
+REF_PROBE = """
+import importlib, sys
+for sub in ("", ".config", ".pipeline"):
+    importlib.import_module("slam_bench.{name}" + sub)
+from slam_bench.run import forbidden_modules
+print(forbidden_modules()
+      + sorted({{m.split(".", 1)[0] for m in sys.modules}}
+               & {{"supersurfel_fusion_tpu_torch"}}))
 """
 
 
@@ -47,3 +66,10 @@ def test_forbidden_compares_whole_top_level_names():
             "sys.modules['jax'] = types.ModuleType('j')\n"
             "print([a, forbidden_modules()])")
     assert _run(code) == "[[], ['jax', 'supersurfel_fusion_tpu']]"
+
+
+@pytest.mark.parametrize("name", REFERENCES)
+def test_reference_package_imports_nothing_of_the_program(name):
+    """A reference package loads neither JAX, the JAX package nor the
+    program under test."""
+    assert _run(REF_PROBE.format(name=name)) == "[]"
