@@ -36,7 +36,11 @@ runners report the mean host ms of each span (`stage_ms`).
 One step needs the host: with loop closure on, the frame step reads the
 fern gate once per frame and runs `close_global_loop` only on a frame
 where it fires (the JAX package's `lax.cond`). That is one host wait per
-frame, and none with loop closure off.
+frame, and none with loop closure off. A frame where it fires counts
+`lc.gate` in the recorder, its closure records the parts
+`lc.relocalise`, `lc.align` and `lc.deform` inside the `loop_closure`
+stage, and its outputs hold the closure's map (`lc_model`) and arguments
+(`lc_inputs`), so that the closure can be checked on its own inputs.
 """
 
 from __future__ import annotations
@@ -107,6 +111,11 @@ class SLAMState(NamedTuple):
     detector: Optional[PersonDetector] = None
 
 
+# the names of `close_global_loop`'s tensor arguments, in order
+LC_INPUTS = ("store", "best_id", "model", "nb_supersurfels", "frame", "kp",
+             "kp_p3d", "kp_depth_ok", "target_maps", "pose", "stamp")
+
+
 class FrameOutput(NamedTuple):
     pose: Pose
     vo_valid: Tensor
@@ -130,6 +139,12 @@ class FrameOutput(NamedTuple):
     # with loop closure on: the gate (read on the host) and the verdict
     lc_gate: Optional[bool] = None
     lc_accepted: Optional[Tensor] = None  # () bool
+    # on a frame whose gate fired: the positions of the model that
+    # `close_global_loop` returned, before fusion compacts it, and the
+    # tensor arguments it was called with, by name (the same tensors, not
+    # copies); None on every other frame
+    lc_model: Optional[Tensor] = None    # (capacity, 3)
+    lc_inputs: Optional[dict] = None
 
 
 def init_state(cfg: PipelineConfig,
@@ -518,24 +533,28 @@ def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
             # on a frame where the gate fires
             fire = bool(gate)
             accepted = torch.zeros((), dtype=torch.bool, device=dev)
+            lc_model = lc_inputs = None
             if fire:
+                tracing.count("lc.gate")
                 if target_maps is None:
                     target_maps = _target_maps(frame, tps.labels,
                                                plane_depth, cfg)
-                lc = lc_ops.close_global_loop(
-                    kf_store, best_id, model_surfels,
-                    state.model.nb_supersurfels, frame, kp, kp_p3d,
-                    kp_depth_ok, target_maps, pose, state.stamp, cam,
-                    cfg.icp)
+                lc_args = (kf_store, best_id, model_surfels,
+                           state.model.nb_supersurfels, frame, kp, kp_p3d,
+                           kp_depth_ok, target_maps, pose, state.stamp)
+                lc = lc_ops.close_global_loop(*lc_args, cam, cfg.icp)
+                lc_inputs = dict(zip(LC_INPUTS, lc_args))
                 accepted = lc.accepted
                 pose = lc.pose
                 model_surfels = lc.model
+                lc_model = lc.model.positions
                 kf_store = kf_store._replace(db=db._replace(
                     poses_R=lc.kf_poses_R, poses_t=lc.kf_poses_t))
                 last_lc = torch.where(accepted, state.stamp, last_lc)
                 lc_count = lc_count + accepted.to(torch.int32)
                 lmap = reset_map_if(accepted, kp, fdepth, pose, lmap, cfg)
-        fern_out.update(lc_gate=fire, lc_accepted=accepted)
+        fern_out.update(lc_gate=fire, lc_accepted=accepted,
+                        lc_model=lc_model, lc_inputs=lc_inputs)
     if use_ferns:
         # a new keyframe takes the next id (ferns.cu: bestKeyFrameId =
         # keyFrames.size())

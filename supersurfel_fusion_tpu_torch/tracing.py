@@ -11,7 +11,9 @@ Every range the port opens goes through this module:
   with `replay=True`, as a CUDA graph replayed (`graphs.py`);
 * `span(name)`: a part of a stage ("tps.rgb", "features.score", ...),
   recorded here only: the profiler sees the stage ranges alone, side by
-  side, as it did before there was a recorder.
+  side, as it did before there was a recorder;
+* `count(name, n)`: adds the host integer n to the open frame's counter
+  `name` (`lc.gate`: the loop-closure gate fired), kept on the frame.
 
 A stage's parts are recorded where its Python runs: on a replayed stage
 they are not, since the replay runs the graph captured from them. A span
@@ -51,12 +53,14 @@ class Frame(NamedTuple):
     """One recorded frame step: its number and its spans, each a list
     [name, parent index, start ns, end ns]; spans[0] is the frame span.
     `replays` and `eager` count its stages replayed as CUDA graphs and run
-    op by op."""
+    op by op; `counts` holds its counters ({name: int}, `count`), or None
+    where none was counted."""
 
     number: int
     spans: list
     replays: int = 0
     eager: int = 0
+    counts: dict | None = None
 
     @property
     def start_ns(self) -> int:
@@ -77,6 +81,7 @@ class Recorder:
         self._spans = None     # the open frame's spans, None outside one
         self._stack: list = []  # indices of the open spans
         self._counts = [0, 0]   # the open frame's replayed, eager stages
+        self._counters: dict = {}  # the open frame's counters
 
 
 RECORDER = Recorder()
@@ -145,6 +150,7 @@ class _Frame:
             rec._spans = [[FRAME, -1, _now(), 0]]
             rec._stack = [0]
             rec._counts = [0, 0]
+            rec._counters = {}
         return self
 
     def __exit__(self, exc_type, *exc):
@@ -155,7 +161,8 @@ class _Frame:
         spans[0][3] = _now()
         rec._spans, rec._stack = None, []
         if exc_type is None:   # a step that raised is not kept
-            rec.frames.append(Frame(self.number, spans, *rec._counts))
+            rec.frames.append(Frame(self.number, spans, *rec._counts,
+                                    rec._counters or None))
         return False
 
 
@@ -174,6 +181,15 @@ def stage(name: str, replay: bool = False) -> _Stage:
 def span(name: str) -> _Span:
     """A part of a stage, recorded here only."""
     return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add the host integer `n` to the open frame's counter `name`; a
+    no-op outside a frame. It takes no tensor, so it never waits for the
+    device."""
+    rec = RECORDER
+    if rec._spans is not None:
+        rec._counters[name] = rec._counters.get(name, 0) + int(n)
 
 
 def enable(on: bool = True) -> None:

@@ -178,3 +178,29 @@ def test_stage_counts_of_recorded_frames(monkeypatch):
                                             "eager_per_frame": 2.0}
     assert tracing.stage_counts([]) == {"replays_per_frame": 0.0,
                                         "eager_per_frame": 0.0}
+
+
+def test_counters_of_recorded_frames(monkeypatch):
+    """`count` adds host integers to the open frame's counters, which the
+    frame keeps (None where nothing was counted); outside a frame, or
+    with the recorder off, it keeps nothing."""
+    monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
+    tracing.count("lc.gate")
+    for n in (2, 0):
+        with tracing.frame():
+            with tracing.stage("loop_closure"):
+                for _ in range(n):
+                    tracing.count("lc.gate")
+                tracing.count("other", 3 * n)
+        with tracing.frame():
+            pass
+    tracing.enable(False)
+    try:
+        with tracing.frame():
+            tracing.count("lc.gate")
+    finally:
+        tracing.enable(True)
+    frames = tracing.frames()
+    assert [f.counts for f in frames] == [{"lc.gate": 2, "other": 6}, None,
+                                          {"other": 0}, None]
+    assert tracing.RECORDER._counters == {}
