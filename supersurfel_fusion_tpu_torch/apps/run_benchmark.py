@@ -5,10 +5,11 @@ Port of `supersurfel_fusion_tpu/apps/run_benchmark.py` (the reference's
 synchronously through the frame step, writes a TUM-format trajectory and
 prints one JSON line with the run's statistics (with `stage_ms`, the mean
 host ms per frame of each span of the port's recorder, `tracing.py`, over
-the run's last 4096 frames, and `graphs`: the stages captured as CUDA
-graphs, the host ms of their capture and, over the same frames, the mean
-stages per frame replayed and run op by op) and, when the sequence has
-ground truth, ATE and RPE.
+the run's last 4096 frames, and `graphs`: the stages and parts captured as
+CUDA graphs, the host ms of their capture and, over the same frames, the
+mean stages and parts per frame replayed and run op by op and the ops run
+eagerly between parts, `SupersurfelFusion.graph_report`) and, when the
+sequence has ground truth, ATE and RPE.
 
 Usage:
   python -m supersurfel_fusion_tpu_torch.apps.run_benchmark \\

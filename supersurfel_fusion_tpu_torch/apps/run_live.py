@@ -21,9 +21,10 @@ mask and model images to ``--render-dir``; ``--save-model`` exports the
 final model. The last line on standard output is one JSON object
 (``frames``, ``fps``, ``trajectory``, ``stage_ms``: the mean host ms per
 frame of each span of the port's recorder, `tracing.py`, over the run's
-last 4096 frames, and ``graphs``: the stages captured as CUDA graphs, the
-host ms of their capture and, over the same frames, the mean stages per
-frame replayed and run op by op).
+last 4096 frames, and ``graphs``: the stages and parts captured as CUDA
+graphs, the host ms of their capture and, over the same frames, the mean
+stages and parts per frame replayed and run op by op and the ops run
+eagerly between parts, `SupersurfelFusion.graph_report`).
 
 Frames are processed in order and none is dropped: a feed faster than the
 frame step builds a backlog.

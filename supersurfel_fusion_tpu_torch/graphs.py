@@ -7,7 +7,7 @@ sharded step, a stage runs eagerly inside `tracing.stage(name)`, as the
 step always has.
 
 `SupersurfelFusion` on a CUDA device runs its steps under a `StageGraphs`
-runner. Each stage outside `EAGER_STAGES` is then one CUDA graph:
+runner. Each stage outside `HOST_STAGES` is then one CUDA graph:
 
 * the first call with a given signature (the stage, its function, the
   structure of its arguments, the shapes, strides and dtypes of its
@@ -30,8 +30,19 @@ replayed and run eagerly per frame.
 The captured work is fixed: a function a stage calls inside `fn` that is
 patched after the capture is not seen (a patched `fn` is: it is part of
 the signature). A stage that cannot be captured raises; it is never run
-eagerly in its place without a word. `EAGER_STAGES` lists the stages that
-make the host wait and stay eager: `mod` (the SVDs of the rigid RANSAC).
+eagerly in its place without a word.
+
+`HOST_STAGES` lists the stages that make the host wait inside and so are
+not captured whole: `mod`, whose rigid RANSAC takes two `torch.linalg.svd`
+calls that read their convergence flags on the host. Such a stage's Python
+runs every frame inside its stage span and range. It calls its
+fixed-shape work as parts, `part(name, fn, *args)`, and the waiting ops
+eagerly between them (`tracing.eager_op`). Under the runner a part is
+warmed, captured and replayed exactly as a stage is (the same signature,
+copies in and out, pool and side stream) inside a recorder span of its
+own (`tracing.part`) and no profiler range, so the stage's range holds
+all of its device work; outside it a part is `fn(*args)` in that span.
+`tracing` counts the parts replayed and run eagerly, and the eager ops.
 The `ferns` and `loop_closure` stages (the gate is read on the host) open
 their ranges themselves and always run op by op.
 """
@@ -48,7 +59,7 @@ from supersurfel_fusion_tpu_torch import tracing
 
 Tensor = torch.Tensor
 
-EAGER_STAGES = frozenset({"mod"})
+HOST_STAGES = frozenset({"mod"})
 # dtypes the multi-tensor copy takes on a card (not uint16, the raw depth)
 _MULTI = frozenset({torch.float32, torch.float64, torch.float16,
                     torch.bfloat16, torch.int64, torch.int32, torch.int16,
@@ -63,6 +74,16 @@ def stage(name: str, fn, *args):
     if _current is None:
         return _eager(name, fn, args)
     return _current.run(name, fn, args)
+
+
+def part(name: str, fn, *args):
+    """Part `name` of a stage in `HOST_STAGES`, `fn(*args)`, through the
+    runner in use (op by op inside `tracing.part(name)` outside
+    `StageGraphs.step`)."""
+    if _current is None:
+        with tracing.part(name):
+            return fn(*args)
+    return _current.run_part(name, fn, args)
 
 
 def _eager(name: str, fn, args):
@@ -127,7 +148,8 @@ class _Graph:
 
 class StageGraphs:
     """The runner of `SupersurfelFusion` on a CUDA device: each stage not
-    in `EAGER_STAGES` as a CUDA graph, captured on its second call."""
+    in `HOST_STAGES`, and each part of one that is, as a CUDA graph,
+    captured on its second call."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -149,14 +171,24 @@ class StageGraphs:
             _current = old
 
     def run(self, name, fn, args):
-        if name in EAGER_STAGES:
+        if name in HOST_STAGES:
             return _eager(name, fn, args)
+        return self._graphed(name, fn, args, tracing.stage)
+
+    def run_part(self, name, fn, args):
+        return self._graphed(name, fn, args, tracing.part)
+
+    def _graphed(self, name, fn, args, scope):
+        """`fn(*args)` inside `scope(name, replay)`: run eagerly on the
+        first call with its signature, captured on the second, replayed
+        after."""
         sig, leaves, spec = signature(name, fn, args)
         g = self.graphs.get(sig)
         if g is None and sig not in self.warm:
             self.warm.add(sig)
-            return _eager(name, fn, args)
-        with tracing.stage(name, replay=True):
+            with scope(name):
+                return fn(*args)
+        with scope(name, replay=True):
             if g is None:
                 g = self.graphs[sig] = self._capture(name, fn, leaves, spec)
             else:
@@ -217,7 +249,7 @@ class StageGraphs:
         return g
 
     def report(self) -> dict:
-        """The stages captured, in order, and the host ms the captures
-        took (the first replay of each included)."""
+        """The stages and parts captured, in order, and the host ms the
+        captures took (the first replay of each included)."""
         return {"captured": list(self.captured),
                 "capture_ms": 1e3 * self.capture_s}

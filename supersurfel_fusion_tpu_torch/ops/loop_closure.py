@@ -15,15 +15,22 @@ the RANSAC), `lc.align` (the dense ICP) and `lc.deform` (the graph, its
 bindings and solve, and the deformation of the model and keyframe poses).
 
 `ransac_rigid_3d` also serves the MOD's depth-residual cue, which fits the
-camera's rigid motion from matched keypoints. Everything is fixed-shape
-and reads nothing on the host; the frame step decides on the host whether
-to run `close_global_loop` at all (one wait per frame, `pipeline.py`).
+camera's rigid motion from matched keypoints. It is the composition of
+three pieces around its two SVDs (`rigid_hypotheses`, `rigid_refit`,
+`rigid_result`; the fit itself `kabsch_moments` and `kabsch_rotation`),
+which MOD calls one by one so that the stage runner can capture the work
+between the SVDs (`ops/motion.py`). Everything but the SVDs is
+fixed-shape and reads nothing on the host; the frame step decides on the
+host whether to run `close_global_loop` at all (one wait per frame,
+`pipeline.py`).
 Over a sharded model and keyframe store (`parallel/`), the same function
 samples the graph's nodes on every rank and deforms each rank's block.
 
-The SVD is `torch.linalg.svd`. R = V S U^T does not change when a
-singular pair changes sign, so nondegenerate hypotheses agree with the
-JAX package; degenerate triples (repeated draws) may not, and score low.
+The SVD is `torch.linalg.svd`; on a card it reads its convergence flags
+on the host, so each waits for the device. R = V S U^T does not change
+when a singular pair changes sign, so nondegenerate hypotheses agree with
+the JAX package; degenerate triples (repeated draws) may not, and score
+low.
 """
 
 from __future__ import annotations
@@ -127,21 +134,35 @@ def _det3(M: Tensor) -> Tensor:
                               - M[..., 1, 1] * M[..., 2, 0]))
 
 
-def _kabsch(P: Tensor, Q: Tensor, w: Tensor):
-    """Weighted rigid fit Q ~ R P + t (batched over leading dims)."""
+def kabsch_moments(P: Tensor, Q: Tensor, w: Tensor):
+    """The first half of a weighted rigid fit Q ~ R P + t (batched over
+    leading dims): the weighted means (mp, mq) and the cross-covariance H,
+    whose SVD the second half, `kabsch_rotation`, takes."""
     ws = torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-9)
     mp = torch.sum(P * w[..., None], -2) / ws
     mq = torch.sum(Q * w[..., None], -2) / ws
     Pc = (P - mp[..., None, :]) * w[..., None]
     Qc = Q - mq[..., None, :]
     H = torch.einsum("...ni,...nj->...ij", Pc, Qc)
-    U, _, Vt = torch.linalg.svd(H)
+    return mp, mq, H
+
+
+def kabsch_rotation(U: Tensor, Vt: Tensor, mp: Tensor, mq: Tensor):
+    """The second half of the fit: (R, t) from the SVD U S Vt of H and the
+    means."""
     V = Vt.transpose(-1, -2)
     d = _det3(V @ U.transpose(-1, -2))
     S = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
     R = (V * S[..., None, :]) @ U.transpose(-1, -2)      # V S U^T
     t = mq - torch.einsum("...ij,...j->...i", R, mp)
     return R, t
+
+
+def _kabsch(P: Tensor, Q: Tensor, w: Tensor):
+    """Weighted rigid fit Q ~ R P + t (batched over leading dims)."""
+    mp, mq, H = kabsch_moments(P, Q, w)
+    U, _, Vt = torch.linalg.svd(H)
+    return kabsch_rotation(U, Vt, mp, mq)
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,7 +184,25 @@ def ransac_rigid_3d(src: Tensor, dst: Tensor, ok: Tensor, n_hyp: int = 256,
     Hypothesis triples are drawn from the valid subset (valid-first order,
     draws modulo the valid count). With `src_xy` (pixel positions of the
     src points), hypotheses are ranked by spatial coverage with the raw
-    inlier count as tiebreak. Returns (R, t, valid, n_in)."""
+    inlier count as tiebreak. Returns (R, t, valid, n_in).
+
+    The three pieces around its two SVDs, `rigid_hypotheses`,
+    `rigid_refit` and `rigid_result`, are also called one by one, by
+    MOD's parts (`ops/motion.py`); composed here they run the same ops in
+    the same order."""
+    hyp, w3, n_ok = rigid_hypotheses(src, dst, ok, n_hyp, seed)
+    U, _, Vt = torch.linalg.svd(hyp[2])
+    fit, best_inl = rigid_refit(U, Vt, hyp, w3, src, dst, ok, thresh,
+                                src_xy, img_w, img_h, cov_grid)
+    U, _, Vt = torch.linalg.svd(fit[2])
+    return rigid_result(U, Vt, fit, best_inl, n_ok, min_inliers, min_ratio)
+
+
+def rigid_hypotheses(src: Tensor, dst: Tensor, ok: Tensor, n_hyp: int = 256,
+                     seed: int = 7):
+    """`ransac_rigid_3d` up to its hypotheses' cross-covariances: (the
+    hypotheses' `kabsch_moments` (mp, mq, H (n_hyp, 3, 3)), their triples'
+    weights w3 (n_hyp, 3), the valid count n_ok)."""
     n_ok = torch.sum(ok.to(torch.int64))
     # valid-first ordering; draws restricted to the first n_ok entries
     order = torch.argsort((~ok).to(torch.int8), stable=True)
@@ -173,7 +212,18 @@ def ransac_rigid_3d(src: Tensor, dst: Tensor, ok: Tensor, n_hyp: int = 256,
     Q = dst[idx]
     w3 = ok[idx].to(torch.float32)
     # degenerate triples (repeated draws / collinear) score low naturally
-    R, t = _kabsch(P, Q, w3)
+    return kabsch_moments(P, Q, w3), w3, n_ok
+
+
+def rigid_refit(U: Tensor, Vt: Tensor, hyp, w3: Tensor, src: Tensor,
+                dst: Tensor, ok: Tensor, thresh: float,
+                src_xy: Tensor | None, img_w: float, img_h: float,
+                cov_grid: int = 8):
+    """From the hypotheses' SVD (U, Vt) to the refit's cross-covariance:
+    each hypothesis' rotation, its inliers and score, the winner's
+    inliers. Returns (the refit's `kabsch_moments`, batched over 1, the
+    winner's inliers (N,) bool)."""
+    R, t = kabsch_rotation(U, Vt, hyp[0], hyp[1])
     pred = torch.einsum("hij,nj->hni", R, src) + t[:, None, :]
     diff = pred - dst[None]
     err = torch.sqrt(diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
@@ -192,7 +242,15 @@ def ransac_rigid_3d(src: Tensor, dst: Tensor, ok: Tensor, n_hyp: int = 256,
     # it on the host and waits for the device
     best_inl = inl.index_select(0, best.reshape(1))[0] & ok
     # refit on the winners
-    Rf, tf = _kabsch(src[None], dst[None], best_inl[None].to(torch.float32))
+    return (kabsch_moments(src[None], dst[None],
+                           best_inl[None].to(torch.float32)), best_inl)
+
+
+def rigid_result(U: Tensor, Vt: Tensor, fit, best_inl: Tensor, n_ok: Tensor,
+                 min_inliers: int, min_ratio: float):
+    """From the refit's SVD (U, Vt) to `ransac_rigid_3d`'s (R, t, valid,
+    n_in)."""
+    Rf, tf = kabsch_rotation(U, Vt, fit[0], fit[1])
     Rf, tf = orthonormalize(Rf[0]), tf[0]
     n_in = torch.sum(best_inl.to(torch.int32))
     valid = ((n_in > min_inliers)

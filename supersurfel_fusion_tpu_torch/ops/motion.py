@@ -11,7 +11,13 @@ reference's `MotionDetection::detectMotionSimple/Combined`):
   convexity-gated adjacency for a fixed number of iterations;
 * the camera-motion compensation chain (descriptor matches, GMS,
   similarity RANSAC, warp, dense flow) is ops/flow.py, and the depth cue
-  fits the rigid motion with ops/loop_closure.ransac_rigid_3d.
+  fits the rigid motion with the pieces of
+  ops/loop_closure.ransac_rigid_3d.
+
+`detect_motion` runs as three parts (`graphs.part`) around the two SVDs
+of that rigid RANSAC, which read their convergence flags on the host and
+so run eagerly between them: under the frame step's stage runner on a
+card each part is a CUDA graph, elsewhere it runs op by op.
 
 The JAX version writes each propagation step as 24 shifted tables. Here a
 step is one gather of all 24 neighbours from the flattened table plus a
@@ -32,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from supersurfel_fusion_tpu_torch import tracing
+from supersurfel_fusion_tpu_torch import graphs, tracing
 from supersurfel_fusion_tpu_torch.config import (
     CameraIntrinsics,
     MODConfig,
@@ -47,7 +53,11 @@ from supersurfel_fusion_tpu_torch.ops.flow import (
     se3_depth_residual,
     warp_similarity,
 )
-from supersurfel_fusion_tpu_torch.ops.loop_closure import ransac_rigid_3d
+from supersurfel_fusion_tpu_torch.ops.loop_closure import (
+    rigid_hypotheses,
+    rigid_refit,
+    rigid_result,
+)
 from supersurfel_fusion_tpu_torch.ops.matching import (
     gms_filter,
     match_bruteforce,
@@ -332,7 +342,65 @@ def detect_motion(
 
     Returns (is_static_sp (N,) bool, static_kp (K,) bool, new_prev). On
     the first frame (prev.initialized false) only person, residual and
-    heat marks apply."""
+    heat marks apply.
+
+    The pass is three parts around the two SVDs of the depth cue's rigid
+    RANSAC (`loop_closure.ransac_rigid_3d`, in its pieces): `mod.a` up to
+    the hypotheses' cross-covariances, `mod.b` (`rigid_refit`) from their
+    rotations to the refit's, `mod.c` from the refit's rotation to the
+    decision. Each part goes through `graphs.part` (a CUDA graph under the
+    stage runner, op by op elsewhere); the SVDs run eagerly between them,
+    since they wait for the device. Without the depth cue it is `mod.a`
+    and `mod.c`."""
+    H, W = rgb_gray.shape
+    combined = cfg.use_yolo and detector is not None
+    cues = graphs.part("mod.a", _mod_a, rgb_gray, depth, prev, kp, frame,
+                       tps.labels, tps.stats, cam, tps_cfg, cfg, combined,
+                       detector)
+    refit = None
+    if cues.rigid is not None:
+        dst, pair_ok, hyp, w3, _ = cues.rigid
+        U, Vt = _svd(hyp[2])
+        fit, best_inl = graphs.part(
+            "mod.b", rigid_refit, U, Vt, hyp, w3, prev.kp_p3d, dst, pair_ok,
+            0.05, prev.kp_xy, float(W), float(H))
+        U, Vt = _svd(fit[2])
+        refit = (U, Vt, fit, best_inl)
+    return graphs.part("mod.c", _mod_c, rgb_gray, depth, prev, kp,
+                       frame.positions, tps.labels, cam, tps_cfg, cfg,
+                       combined, cues, refit)
+
+
+def _svd(H: Tensor):
+    """(U, Vt) of `torch.linalg.svd(H)`, an op run eagerly between MOD's
+    parts: it reads its convergence flags on the host."""
+    with tracing.eager_op("mod.svd"):
+        U, _, Vt = torch.linalg.svd(H)
+    return U, Vt
+
+
+class _Cues(NamedTuple):
+    """What `mod.a` hands on to the rest of `detect_motion`."""
+
+    label: Tensor        # (N,) int64 cluster label after fill-in, -1 none
+    lab_c: Tensor        # (N,) int64 label, N where none
+    cl_cnt: Tensor       # (N + 1,) f32 superpixels per cluster
+    dyn_cluster: Tensor  # (N + 1,) bool: the cluster flow cue
+    person: Tensor       # (N,) bool
+    adj24: Tensor        # (25, N) bool neighbours in offset order
+    kp_sp: Tensor        # (K,) int64 superpixel of each keypoint
+    kp_p3d: Tensor       # (K, 3) camera-frame keypoints
+    similarity: tuple    # (a, b, tx, ty, valid): previous -> current image
+    # the depth cue's rigid RANSAC: (dst (K, 3), pair_ok (K,), the
+    # hypotheses' moments, w3, n_ok) (`rigid_hypotheses`); None without
+    # the cue
+    rigid: tuple | None
+
+
+def _mod_a(rgb_gray, depth, prev, kp, frame, labels, stats, cam, tps_cfg,
+           cfg, combined, detector) -> _Cues:
+    """Part `mod.a`: clusters, persons, flow, fill-in, the cluster flow
+    cue and the rigid RANSAC up to its hypotheses' cross-covariances."""
     H, W = rgb_gray.shape
     dev = rgb_gray.device
     cs = tps_cfg.cell_size
@@ -341,7 +409,7 @@ def detect_motion(
 
     # ---- geometric clustering
     with tracing.span("mod.clusters"):
-        adj = superpixel_adjacency(tps.labels, gh, gw, cs)
+        adj = superpixel_adjacency(labels, gh, gw, cs)
         pos_t = frame.positions.reshape(gh, gw, 3)
         nrm_t = frame.orientations[:, 2, :].reshape(gh, gw, 3)
         conf_t = frame.confidences.reshape(gh, gw)
@@ -351,15 +419,14 @@ def detect_motion(
     # person keypoints never enter the camera-motion estimation and person
     # superpixels never dilute cluster flow statistics
     with tracing.span("mod.person"):
-        combined = cfg.use_yolo and detector is not None
         ui, vi = _keypoint_pixels(kp.xy, H, W)
-        kp_sp = tps.labels[vi, ui].to(torch.int64)
+        kp_sp = labels[vi, ui].to(torch.int64)
         if combined:
             det = detector(rgb_gray, depth, max_det=cfg.max_person_boxes,
                            score_thresh=cfg.person_score_thresh)
             person = person_flood_fill(
-                det.boxes, det.valid, adj, tps.stats.centroid, pos_t, conf_t,
-                tps.labels, gh, gw, cs, depth_gate=cfg.person_depth_gate,
+                det.boxes, det.valid, adj, stats.centroid, pos_t, conf_t,
+                labels, gh, gw, cs, depth_gate=cfg.person_depth_gate,
             ).reshape(-1)
         else:
             person = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
@@ -394,8 +461,8 @@ def detect_motion(
         take = ((x >= 40) & (x < W - 40) & (y >= 40) & (y < H - 40)
                 & torch.isfinite(mag) & (mag > 2.0) & (mag <= 50.0))
         fl = torch.where(take[..., None], flow, torch.zeros_like(flow))
-        sums = cell_reduce(fl, tps.labels, gh, gw, cs)            # (GH, GW, 2)
-        sp_size = torch.clamp(tps.stats.size, min=1.0)
+        sums = cell_reduce(fl, labels, gh, gw, cs)                # (GH, GW, 2)
+        sp_size = torch.clamp(stats.size, min=1.0)
         uv_sp = sums / sp_size[..., None]
         uv_mag = torch.sqrt(uv_sp[..., 0] * uv_sp[..., 0]
                             + uv_sp[..., 1] * uv_sp[..., 1]).reshape(-1)
@@ -427,7 +494,7 @@ def detect_motion(
 
         # fill-in 2: the closest neighbour in Lab colour (distance < 20; the
         # first of equally close ones)
-        lab_col = rgb_to_lab(tps.stats.color)                     # (GH, GW, 3)
+        lab_col = rgb_to_lab(stats.color)                         # (GH, GW, 3)
         L = _gather25(label.reshape(gh, gw), -1, gh, gw).reshape(25, n_sp)
         cj = _gather25(lab_col, float("nan"), gh, gw).reshape(25, n_sp, 3)
         d = _norm3(lab_col.reshape(1, n_sp, 3) - cj)
@@ -453,18 +520,44 @@ def detect_motion(
 
         # ---- cluster depth-residual cue: a full SE(3) inverse warp against
         # the previous filtered depth, with the rigid motion fitted by 3D-3D
-        # RANSAC over the matched keypoints
-        dscale = (cfg.depth_cue_scale_combined if combined
-                  else cfg.depth_cue_scale_simple)
-        mark_resid = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
-        if dscale > 0:
+        # RANSAC over the matched keypoints (to its SVDs here)
+        rigid = None
+        if _depth_cue_scale(cfg, combined) > 0:
             pair_ok = (inl & kp_z_ok[midx] & prev.kp_valid
                        & (prev.kp_p3d[:, 2] >= 0.2)
                        & (prev.kp_p3d[:, 2] < 5.0))
-            R_rig, t_rig, rigid_ok, _ = ransac_rigid_3d(
-                prev.kp_p3d, kp_p3d[midx], pair_ok, thresh=0.05,
-                min_inliers=15, min_ratio=0.15,
-                src_xy=prev.kp_xy, img_w=float(W), img_h=float(H))
+            dst = kp_p3d[midx]
+            rigid = (dst, pair_ok,
+                     *rigid_hypotheses(prev.kp_p3d, dst, pair_ok))
+    return _Cues(label, lab_c, cl_cnt, dyn_cluster, person, adj24, kp_sp,
+                 kp_p3d, (a, b, tx, ty, H_ok), rigid)
+
+
+def _depth_cue_scale(cfg: MODConfig, combined: bool) -> float:
+    return (cfg.depth_cue_scale_combined if combined
+            else cfg.depth_cue_scale_simple)
+
+
+def _mod_c(rgb_gray, depth, prev, kp, positions, labels, cam, tps_cfg, cfg,
+           combined, cues: _Cues, refit):
+    """Part `mod.c`: from the refit's SVD (`refit`: U, Vt, the refit's
+    moments, the winners; None without the depth cue) to the rigid
+    motion, the SE(3) depth residual, its hysteresis and the decision.
+    Returns `detect_motion`'s (is_static_sp, static_kp, new_prev)."""
+    H, W = rgb_gray.shape
+    dev = rgb_gray.device
+    cs = tps_cfg.cell_size
+    gh, gw = H // cs, W // cs
+    n_sp = gh * gw
+    label, lab_c, cl_cnt, dyn_cluster, person = cues[:5]
+    a, b, tx, ty, H_ok = cues.similarity
+
+    with tracing.span("mod.cues"):
+        dscale = _depth_cue_scale(cfg, combined)
+        mark_resid = torch.zeros((n_sp,), dtype=torch.bool, device=dev)
+        if refit is not None:
+            R_rig, t_rig, rigid_ok, _ = rigid_result(
+                *refit, cues.rigid[4], min_inliers=15, min_ratio=0.15)
             resid = se3_depth_residual(depth, prev.depth, R_rig, t_rig,
                                        cam.fx, cam.fy, cam.cx, cam.cy)
             resid_abs = torch.abs(resid)
@@ -473,12 +566,13 @@ def detect_motion(
             r_valid = (resid_abs > 0.0).to(torch.float32)
             rsums = cell_reduce(
                 torch.stack([resid_abs, resid_pos, r_valid], -1),
-                tps.labels, gh, gw, cs)
+                labels, gh, gw, cs)
             den = torch.clamp(rsums[..., 2], min=32.0)
             sp_zdiff = (rsums[..., 0] / den).reshape(-1)
             sp_pos_t = rsums[..., 1] / den
-            zsp = torch.where(pos_t[..., 2] > 0, pos_t[..., 2],
-                              torch.zeros_like(pos_t[..., 2])).reshape(-1)
+            pos_z = positions.reshape(gh, gw, 3)[..., 2]
+            zsp = torch.where(pos_z > 0, pos_z,
+                              torch.zeros_like(pos_z)).reshape(-1)
             cl_zdiff = _cluster_sum(lab_c, sp_zdiff, n_sp)
             cl_z = _cluster_sum(lab_c, zsp, n_sp)
             cl_zdiff = cl_zdiff / torch.clamp(cl_cnt, min=1.0)
@@ -494,7 +588,7 @@ def detect_motion(
                 hot = ((sp_pos_t > cfg.resid_hot_thresh)
                        & rigid_ok).reshape(-1)
                 weak = (sp_pos_t > cfg.resid_low_thresh).reshape(-1)
-                nbr = _gated_index(adj24, gh, gw)
+                nbr = _gated_index(cues.adj24, gh, gw)
                 mark_resid = _grow(hot, weak, nbr, cfg.resid_hyst_iters)
 
     with tracing.span("mod.decide"):
@@ -524,13 +618,13 @@ def detect_motion(
                                    ~dynamic)
 
         # ---- static keypoints (dynamic ones dropped from VO + prev context)
-        static_kp = kp.valid & is_static_sp[kp_sp]
+        static_kp = kp.valid & is_static_sp[cues.kp_sp]
 
     new_prev = MODPrev(
         gray=rgb_gray,
         depth=depth,
         kp_xy=kp.xy,
-        kp_p3d=kp_p3d,
+        kp_p3d=cues.kp_p3d,
         kp_desc=kp.desc,
         kp_valid=static_kp,
         initialized=torch.ones((), dtype=torch.bool, device=dev),

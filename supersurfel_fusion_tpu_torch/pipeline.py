@@ -27,11 +27,13 @@ device. Each frame step is a frame span of the port's span recorder
 but `ferns` and `loop_closure` is one function called through
 `graphs.stage`, which runs it op by op or, in `SupersurfelFusion` on a
 CUDA device, as a CUDA graph captured from that function (`graphs.py`;
-`mod` stays op by op). The stages' parts are recorder spans alone, so the
-profiler sees the stage ranges side by side. The benchmark (`slam_bench/`)
-reads both: the ranges under its profiler, the recorder's spans of the
-frames it does not profile and their launches in the frames it does. The
-runners report the mean host ms of each span (`stage_ms`).
+`mod` runs its Python every frame: its three parts are graphs there, with
+the two SVDs of its rigid RANSAC run eagerly between them). The stages'
+parts are recorder spans alone, so the profiler sees the stage ranges side
+by side. The benchmark (`slam_bench/`) reads both: the ranges under its
+profiler, the recorder's spans of the frames it does not profile and their
+launches in the frames it does. The runners report the mean host ms of
+each span (`stage_ms`).
 
 One step needs the host: with loop closure on, the frame step reads the
 fern gate once per frame and runs `close_global_loop` only on a frame
@@ -655,9 +657,11 @@ class SupersurfelFusion:
         return self.state.pose
 
     def graph_report(self, frames: list) -> dict:
-        """How far the CUDA graphs engage: the stages captured and the host
-        ms of their capture (none on the CPU), and over the recorder's
-        `frames` the mean stages per frame replayed and run eagerly."""
+        """How far the CUDA graphs engage: the stages and parts captured
+        and the host ms of their capture (none on the CPU), and over the
+        recorder's `frames` the mean stages and parts per frame replayed
+        and run eagerly and the ops run eagerly between parts
+        (`tracing.stage_counts`)."""
         rep = self.graphs.report() if self.graphs is not None \
             else {"captured": [], "capture_ms": 0.0}
         return {**rep, **tracing.stage_counts(frames)}

@@ -12,15 +12,21 @@ Every range the port opens goes through this module:
 * `span(name)`: a part of a stage ("tps.rgb", "features.score", ...),
   recorded here only: the profiler sees the stage ranges alone, side by
   side, as it did before there was a recorder;
+* `part(name)`: a part of a stage that the stage runner runs as a CUDA
+  graph of its own (`graphs.part`: "mod.a", ...), recorded here only and
+  counted as run eagerly or, with `replay=True`, replayed;
+* `eager_op(name)`: an op run eagerly between such parts because it
+  makes the host wait ("mod.svd"), recorded here only and counted;
 * `count(name, n)`: adds the host integer n to the open frame's counter
   `name` (`lc.gate`: the loop-closure gate fired), kept on the frame.
 
 A stage's parts are recorded where its Python runs: on a replayed stage
-they are not, since the replay runs the graph captured from them. A span
-holds its name, its parent (an index into its frame's spans, -1
-for the frame span) and its start and end in Unix-epoch nanoseconds
-(`time.time_ns()`), the clock of `torch.profiler`'s events, so that a
-reader can set the spans against a profiler trace of the same frames.
+or part they are not, since the replay runs the graph captured from
+them. A span holds its name, its parent (an index into its frame's
+spans, -1 for the frame span) and its start and end in Unix-epoch
+nanoseconds (`time.time_ns()`), the clock of `torch.profiler`'s events,
+so that a reader can set the spans against a profiler trace of the same
+frames.
 Spans opened outside a frame (a bare call of an op, the detector's
 trainer) are not stored. The last `CAPACITY` frames are kept in a ring.
 One recorder serves the process, which runs one frame step at a time on
@@ -54,13 +60,18 @@ class Frame(NamedTuple):
     [name, parent index, start ns, end ns]; spans[0] is the frame span.
     `replays` and `eager` count its stages replayed as CUDA graphs and run
     op by op; `counts` holds its counters ({name: int}, `count`), or None
-    where none was counted."""
+    where none was counted. `part_replays` and `part_eager` count the
+    parts of a stage (`part`) replayed and run op by op, `eager_ops` the
+    ops run eagerly between them (`eager_op`)."""
 
     number: int
     spans: list
     replays: int = 0
     eager: int = 0
     counts: dict | None = None
+    part_replays: int = 0
+    part_eager: int = 0
+    eager_ops: int = 0
 
     @property
     def start_ns(self) -> int:
@@ -80,7 +91,9 @@ class Recorder:
         self.count = 0         # frames numbered so far
         self._spans = None     # the open frame's spans, None outside one
         self._stack: list = []  # indices of the open spans
-        self._counts = [0, 0]   # the open frame's replayed, eager stages
+        # the open frame's replayed and eager stages, replayed and eager
+        # parts, eager ops (indexed by a span's `slot`)
+        self._counts = [0] * 5
         self._counters: dict = {}  # the open frame's counters
 
 
@@ -88,12 +101,14 @@ RECORDER = Recorder()
 
 
 class _Span:
-    """A recorder-only span; a no-op outside a frame."""
+    """A recorder-only span, counted in the open frame's `_counts[slot]`
+    unless `slot` is None; a no-op outside a frame."""
 
-    __slots__ = ("name", "rec")
+    __slots__ = ("name", "rec", "slot")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, slot: int | None = None):
         self.name = name
+        self.slot = slot
 
     def __enter__(self):
         spans = RECORDER._spans
@@ -104,6 +119,8 @@ class _Span:
             self.rec = rec = [self.name, stack[-1], _now(), 0]
             stack.append(len(spans))
             spans.append(rec)
+            if self.slot is not None:
+                RECORDER._counts[self.slot] += 1
         return self
 
     def __exit__(self, *exc):
@@ -118,16 +135,10 @@ class _Stage(_Span):
     """A stage: the recorder's span "ssf.<name>" around the profiler
     range of the same name, counted as replayed or eager."""
 
-    __slots__ = ("rf", "replay")
-
-    def __init__(self, name: str, replay: bool):
-        self.name = name
-        self.replay = replay
+    __slots__ = ("rf",)
 
     def __enter__(self):
         _Span.__enter__(self)
-        if self.rec is not None:
-            RECORDER._counts[not self.replay] += 1
         self.rf = record_function(self.name)
         self.rf.__enter__()
         return self
@@ -149,7 +160,7 @@ class _Frame:
         if rec.enabled:
             rec._spans = [[FRAME, -1, _now(), 0]]
             rec._stack = [0]
-            rec._counts = [0, 0]
+            rec._counts = [0] * 5
             rec._counters = {}
         return self
 
@@ -161,8 +172,10 @@ class _Frame:
         spans[0][3] = _now()
         rec._spans, rec._stack = None, []
         if exc_type is None:   # a step that raised is not kept
-            rec.frames.append(Frame(self.number, spans, *rec._counts,
-                                    rec._counters or None))
+            c = rec._counts
+            rec.frames.append(Frame(self.number, spans, c[0], c[1],
+                                    rec._counters or None, c[2], c[3],
+                                    c[4]))
         return False
 
 
@@ -175,12 +188,23 @@ def stage(name: str, replay: bool = False) -> _Stage:
     """The stage `name`: a recorder span "ssf.<name>" around the profiler
     range of the same name; `replay`: the stage is a CUDA graph's
     replay."""
-    return _Stage("ssf." + name, replay)
+    return _Stage("ssf." + name, 0 if replay else 1)
 
 
 def span(name: str) -> _Span:
     """A part of a stage, recorded here only."""
     return _Span(name)
+
+
+def part(name: str, replay: bool = False) -> _Span:
+    """A part of a stage run as a graph of its own (`graphs.part`),
+    recorded here only; `replay`: the part is a CUDA graph's replay."""
+    return _Span(name, 2 if replay else 3)
+
+
+def eager_op(name: str) -> _Span:
+    """An op run eagerly between a stage's parts, recorded here only."""
+    return _Span(name, 4)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -217,7 +241,11 @@ def stage_ms(frames: list) -> dict:
 
 def stage_counts(frames: list) -> dict:
     """Mean stages per frame over `frames` replayed as CUDA graphs and run
-    op by op."""
+    op by op, the same of stages' parts, and the mean ops per frame run
+    eagerly between parts."""
     n = max(len(frames), 1)
     return {"replays_per_frame": sum(f.replays for f in frames) / n,
-            "eager_per_frame": sum(f.eager for f in frames) / n}
+            "eager_per_frame": sum(f.eager for f in frames) / n,
+            "part_replays_per_frame": sum(f.part_replays for f in frames) / n,
+            "part_eager_per_frame": sum(f.part_eager for f in frames) / n,
+            "eager_ops_per_frame": sum(f.eager_ops for f in frames) / n}

@@ -226,3 +226,24 @@ def test_kabsch_matches_jax():
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-4)
     det = np.linalg.det(Rt.numpy())
     np.testing.assert_allclose(det, 1.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed,n_valid,use_xy",
+                         [(0, 150, True), (1, 60, False), (2, 2, True),
+                          (3, 150, False)])
+def test_ransac_rigid_3d_pieces_equal_the_whole(seed, n_valid, use_xy):
+    """`ransac_rigid_3d`, composed of `rigid_hypotheses`, `rigid_refit`
+    and `rigid_result` around its two SVDs, gives (R, t, valid, n_in) bit
+    for bit as the whole function before the cut (`mod_unsplit.py`), with
+    and without `src_xy`, at MOD's and loop closure's settings."""
+    from mod_unsplit import ransac_rigid_3d_whole
+
+    src, dst, ok, xy = _rigid_pairs(seed, n_valid=n_valid)
+    for kw in (dict(thresh=0.05, min_inliers=15, min_ratio=0.15), {}):
+        args = (_t(src), _t(dst), _t(ok))
+        kw = dict(kw, src_xy=_t(xy) if use_xy else None)
+        got = tlc.ransac_rigid_3d(*args, **kw)
+        want = ransac_rigid_3d_whole(*args, **kw)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert bool(got[2]) == (n_valid >= 60)

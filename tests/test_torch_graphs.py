@@ -5,6 +5,7 @@ use. The graphs themselves are held to the op-by-op step in
 `test_torch_graphs_cuda.py`."""
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 from torch.utils import _pytree as pytree
 
 from supersurfel_fusion_tpu_torch import graphs, tracing
@@ -99,3 +100,43 @@ def test_eager_runner_outside_a_step(monkeypatch):
     except KeyError:
         pass
     assert graphs._current is None
+
+
+def test_part_runs_op_by_op_in_its_span(monkeypatch):
+    """Outside a runner's step a part (`graphs.part`) is `fn(*args)` op
+    by op inside its recorder span, counted as a part run eagerly, and an
+    op between parts is counted as such; inside a stage neither opens a
+    profiler range, so the profiler sees the stage's `ssf.*` range alone.
+    Under a runner a part's first call with its signature runs the same
+    way (the capture, on the second, needs a card)."""
+    monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
+    calls = []
+
+    def stage_fn(x):
+        y = graphs.part("s.a", lambda v: calls.append(v) or v + 1, x)
+        with tracing.eager_op("s.op"):
+            y = y * 2
+        return graphs.part("s.b", torch.sub, y, 1)
+
+    x = torch.ones(2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.frame():
+            out = graphs.stage("s", stage_fn, x)
+    assert torch.equal(out, torch.full((2,), 3.0)) and calls == [x]
+    [f] = tracing.frames()
+    assert [(n, f.spans[p][0]) for n, p, *_ in f.spans[1:]] == [
+        ("ssf.s", "frame"), ("s.a", "ssf.s"), ("s.op", "ssf.s"),
+        ("s.b", "ssf.s")]
+    assert (f.replays, f.eager, f.part_replays, f.part_eager,
+            f.eager_ops) == (0, 1, 0, 2, 1)
+    names = {ev.name() for ev in prof.profiler.kineto_results.events()}
+    assert "ssf.s" in names and not names & {"s.a", "s.op", "s.b",
+                                              "ssf.s.a", "ssf.s.b"}
+    runner = graphs.StageGraphs(torch.device("cpu"))
+    with runner.step(), tracing.frame():
+        assert torch.equal(graphs.part("s.b", torch.sub, x, 1),
+                           torch.zeros(2))
+        assert graphs.stage("mod", torch.neg, x).eq(-1).all()
+    [_, f] = tracing.frames()
+    assert [n for n, *_ in f.spans] == ["frame", "s.b", "ssf.mod"]
+    assert (f.part_eager, f.eager) == (1, 1) and len(runner.warm) == 1

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from supersurfel_fusion_tpu_torch import pipeline, tracing
 from supersurfel_fusion_tpu_torch.config import PipelineConfig
@@ -24,6 +25,11 @@ N_FRAMES = 12
 SNAPSHOT = 3      # the frame whose state and output are held to the end
 GRAPHED = ["depth", "tps", "planes", "supersurfels", "features", "vo",
            "icp", "local_map", "fusion"]
+# MOD's parts, each a graph inside the `mod` stage, in capture order, and
+# the recorder spans of the stage's Python: the parts and the rigid
+# RANSAC's two eager SVDs between them
+MOD_PARTS = ["mod.a", "mod.b", "mod.c"]
+MOD_SPANS = ["mod.a", "mod.svd", "mod.b", "mod.svd", "mod.c"]
 
 
 @pytest.fixture(scope="module")
@@ -69,8 +75,9 @@ def run(request, cuda):
     """N_FRAMES frames through SupersurfelFusion (graphs) and, in lock
     step, through process_frame op by op from its own initial state; per
     frame the leaves that differ, the frame-SNAPSHOT state and output with
-    copies of them, the runner, the TPS launchers' calls and the TPS
-    kernels' runs in a CUDA trace of the last graphed frame."""
+    copies of them, the runner, the TPS launchers' calls, and in a trace
+    of the last graphed frame the TPS kernels' runs and the profiler's
+    ranges of the port's stages and MOD's parts (name, start, end)."""
     cfg, rgb, depth = cell(request.param)
     sf = pipeline.SupersurfelFusion(cfg, device=cuda)
     state = pipeline.init_state(cfg, cuda)
@@ -83,11 +90,18 @@ def run(request, cuda):
         else:
             torch.cuda.synchronize()
             with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA]) as p:
                 out_g = sf.process(rgb[k], depth[k])
                 torch.cuda.synchronize()
             runs = kernel_runs(p, ["tps_iteration_kernel",
                                    "tps_merge_kernel"])
+            ranges = sorted(
+                ((e.name(), e.start_ns(), e.end_ns())
+                 for e in p.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CPU
+                 and e.name().startswith(("ssf.", "mod."))),
+                key=lambda r: r[1])
         state, out_e = pipeline.process_frame(state, rgb[k], depth[k], cfg)
         diffs.append(differing((sf.state, out_g), (state, out_e)))
         if k == SNAPSHOT:
@@ -97,24 +111,33 @@ def run(request, cuda):
     launches = dict(tps_cuda.launch_counts)
     frames = tracing.frames(first)[::2]      # the graphed runner's frames
     return dict(cell=request.param, cfg=cfg, sf=sf, diffs=diffs, snap=snap,
-                copy=copy, frames=frames, launches=launches, runs=runs)
+                copy=copy, frames=frames, launches=launches, runs=runs,
+                ranges=ranges)
 
 
 @pytest.mark.cuda
 def test_graphs_equal_eager(run):
     """Every frame's state and outputs bit-equal to the op-by-op step's,
     the eager first frame and the capture frame included; every stage but
-    MOD captured in the second frame and replayed after."""
+    MOD, and MOD's three parts, captured in the second frame and replayed
+    after. MOD's stage runs its Python every frame (counted as a stage
+    run op by op), with its two SVDs eager between the parts."""
     bad = {k: d for k, d in enumerate(run["diffs"]) if d}
     assert not bad, bad
     mod = run["cfg"].mod.enabled
+    parts = MOD_PARTS if mod else []
     rep = run["sf"].graph_report(run["frames"][2:])
-    assert rep["captured"] == GRAPHED
+    assert rep["captured"] == GRAPHED[:5] + parts + GRAPHED[5:]
     assert rep["replays_per_frame"] == len(GRAPHED)
     assert rep["eager_per_frame"] == (1 if mod else 0)
+    assert rep["part_replays_per_frame"] == len(parts)
+    assert rep["part_eager_per_frame"] == 0
+    assert rep["eager_ops_per_frame"] == (2 if mod else 0)
     f0, f1 = run["frames"][:2]
-    assert (f0.replays, f0.eager) == (0, len(GRAPHED) + mod)
-    assert (f1.replays, f1.eager) == (len(GRAPHED), mod)
+    assert (f0.replays, f0.eager, f0.part_replays, f0.part_eager,
+            f0.eager_ops) == (0, len(GRAPHED) + mod, 0, len(parts), 2 * mod)
+    assert (f1.replays, f1.eager, f1.part_replays, f1.part_eager,
+            f1.eager_ops) == (len(GRAPHED), mod, len(parts), 0, 2 * mod)
     # the launchers run on every op-by-op frame and on the runner's eager
     # and capture frames; a replay runs the captured kernels without them
     assert run["launches"] == {"tps_iteration": 10 * (N_FRAMES + 2),
@@ -135,16 +158,29 @@ def test_returned_state_is_never_written(run):
 @pytest.mark.cuda
 def test_replayed_frames_record_stages_alone(run):
     """A replayed stage keeps its recorder span and profiler range; its
-    parts are recorded on the eager and capture frames only."""
+    parts are recorded on the eager and capture frames only. MOD's stage
+    holds its graphed parts and SVDs as recorder spans on every frame,
+    and the parts' own parts on the eager and capture frames only. The
+    profiler sees each stage's range once in a replayed frame, one
+    `ssf.mod` among them, none inside another, and no range of a part."""
+    mod = run["cfg"].mod.enabled
     stages = ["ssf." + s for s in GRAPHED]
-    if run["cfg"].mod.enabled:
+    if mod:
         stages.insert(5, "ssf.mod")
     for f in run["frames"]:
         names = [n for n, *_ in f.spans]
         assert [n for n in names if n.startswith("ssf.")] == stages
         parts = {n for n in names if not n.startswith(("ssf.", "frame"))}
-        assert ("icp.iterate" in parts) == (f.replays == 0
-                                            or f is run["frames"][1])
+        eager = f.replays == 0 or f is run["frames"][1]
+        assert ("icp.iterate" in parts) == eager
+        if mod:
+            i = names.index("ssf.mod")
+            assert [n for n, p, *_ in f.spans if p == i] == MOD_SPANS
+            assert ("mod.clusters" in parts) == eager
+    ranges = run["ranges"]
+    assert [n for n, *_ in ranges] == stages
+    for a, b in zip(ranges, ranges[1:]):
+        assert a[2] <= b[1], (a, b)
 
 
 @pytest.mark.cuda

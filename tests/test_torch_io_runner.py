@@ -481,7 +481,10 @@ def test_runner_one_frame_at_640x480(tmp_path):
     # loop-closure frame (ferns twice) all run op by op
     assert res["graphs"] == {"captured": [], "capture_ms": 0.0,
                              "replays_per_frame": 0.0,
-                             "eager_per_frame": 12.0}
+                             "eager_per_frame": 12.0,
+                             "part_replays_per_frame": 0.0,
+                             "part_eager_per_frame": 0.0,
+                             "eager_ops_per_frame": 0.0}
     rows = ttum.read_trajectory_file(str(traj))
     assert list(rows) == [stamps[0]]
     np.testing.assert_allclose(rows[stamps[0]],

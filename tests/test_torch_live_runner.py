@@ -142,7 +142,10 @@ def test_live_runner_on_a_fed_stream_equals_offline_runner(sequence,
     assert 0 < res["stage_ms"]["vo.pnp"] < res["stage_ms"]["frame"]
     assert res["graphs"] == {"captured": [], "capture_ms": 0.0,
                              "replays_per_frame": 0.0,
-                             "eager_per_frame": 9.0}
+                             "eager_per_frame": 9.0,
+                             "part_replays_per_frame": 0.0,
+                             "part_eager_per_frame": 0.0,
+                             "eager_ops_per_frame": 0.0}
     assert fed == stamps
     live = read_trajectory_file(str(live_out))
     assert sorted(live) == list(live) == stamps

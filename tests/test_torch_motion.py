@@ -340,3 +340,48 @@ def test_detect_motion_with_temporal_heat_matches_jax(monkeypatch):
                                             cfg.mod, detector=det)
         n_kept += int((~st & s_off).sum())
     assert len(calls) == 6 and n_kept > 0
+
+
+@pytest.mark.parametrize("case", ["simple", "combined", "combined_heat",
+                                  "no_depth_cue"])
+def test_detect_motion_parts_equal_the_whole(case, monkeypatch):
+    """`detect_motion`, cut into the parts `mod.a`, `mod.b`, `mod.c`
+    around the rigid RANSAC's two SVDs, gives every output bit for bit as
+    the function before the cut (`mod_unsplit.py`) on the dynamic clip's
+    first four frames, each from the JAX package's previous context (the
+    first one uninitialised); without the depth cue there is no `mod.b`
+    and no SVD. In a frame the parts and the SVDs are recorder spans,
+    counted as parts and ops run op by op."""
+    from mod_unsplit import detect_motion_whole
+
+    from supersurfel_fusion_tpu_torch import tracing
+
+    yolo = case != "simple" and case != "no_depth_cue"
+    cfg = mod_config(tcfg, yolo)
+    mod = cfg.mod
+    if case == "combined_heat":
+        mod = dataclasses.replace(mod, temporal_heat=True)
+    if case == "no_depth_cue":
+        mod = dataclasses.replace(mod, depth_cue_scale_simple=0.0)
+    det = convert.detector_from_numpy(jpd.load_params(WEIGHTS)) \
+        if yolo else None
+    monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
+    for k, (ins, prev, _, _) in enumerate(mod_sequence(yolo)):
+        args = (*_port_args(ins, prev), cfg.cam, cfg.tps, mod)
+        with tracing.frame():
+            got = tmotion.detect_motion(*args, detector=det)
+        want = detect_motion_whole(*args, detector=det)
+        for name, a, b in zip(("is_static_sp", "static_kp", "prev"),
+                              got, want):
+            for f, x, y in zip(getattr(a, "_fields", [name]),
+                               a if name == "prev" else [a],
+                               b if name == "prev" else [b]):
+                assert x.dtype == y.dtype and torch.equal(x, y), (k, f)
+    frames = tracing.frames()
+    parts = (["mod.a", "mod.c"] if case == "no_depth_cue"
+             else ["mod.a", "mod.svd", "mod.b", "mod.svd", "mod.c"])
+    for f in frames:
+        assert [n for n, p, *_ in f.spans if p == 0] == parts
+        assert (f.part_replays, f.part_eager, f.eager_ops) == (
+            0, len(parts) - parts.count("mod.svd"), parts.count("mod.svd"))
+    assert len(frames) == 4

@@ -67,8 +67,15 @@ def test_spans_nest_under_one_frame_span(run):
             if name.startswith("ssf."):
                 assert parent == 0, name
             else:
-                # a stage's part lies inside its stage
-                assert pname == "ssf." + name.split(".")[0], (name, pname)
+                # a stage's part lies inside its stage, directly or inside
+                # a part of it that the stage runner runs as a graph of its
+                # own (`graphs.part`: MOD's "mod.a", ...)
+                up = parent
+                while not spans[up][0].startswith("ssf."):
+                    assert spans[up][0].split(".")[0] == name.split(".")[0]
+                    up = spans[up][1]
+                assert spans[up][0] == "ssf." + name.split(".")[0], (name,
+                                                                     pname)
         parts = {n for n in names if not n.startswith(("ssf.", "frame"))}
         assert {"tps.rgb", "tps.plane_init", "tps.rgbd", "features.score",
                 "features.select", "features.describe", "vo.match",
@@ -157,27 +164,44 @@ def test_cpu_runner_runs_every_stage_eagerly():
     assert [(f.replays, f.eager) for f in frames] == [(0, len(STAGES))] * 2
     assert sf.graph_report(frames) == {
         "captured": [], "capture_ms": 0.0, "replays_per_frame": 0.0,
-        "eager_per_frame": float(len(STAGES))}
+        "eager_per_frame": float(len(STAGES)), "part_replays_per_frame": 0.0,
+        "part_eager_per_frame": 0.0, "eager_ops_per_frame": 0.0}
 
 
 def test_stage_counts_of_recorded_frames(monkeypatch):
     """A stage opened with `replay=True` counts as replayed, any other as
-    eager; parts and spans outside a frame count nothing."""
+    eager; a graphed part (`part`) likewise among the parts, and an op
+    between parts (`eager_op`) as an eager op; plain parts and spans
+    outside a frame count nothing."""
     monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
     with tracing.stage("depth"):
-        pass
+        with tracing.part("depth.a"), tracing.eager_op("depth.op"):
+            pass
     for replayed in (2, 0):
         with tracing.frame():
             for i in range(3):
                 with tracing.stage("s", replay=i < replayed):
                     with tracing.span("s.part"):
                         pass
+            with tracing.stage("m"):
+                for i in range(3):
+                    with tracing.part("m.p", replay=i < replayed):
+                        with tracing.span("m.inner"):
+                            pass
+                    with tracing.eager_op("m.op"):
+                        pass
     frames = tracing.frames()
-    assert [(f.replays, f.eager) for f in frames] == [(2, 1), (0, 3)]
-    assert tracing.stage_counts(frames) == {"replays_per_frame": 1.0,
-                                            "eager_per_frame": 2.0}
-    assert tracing.stage_counts([]) == {"replays_per_frame": 0.0,
-                                        "eager_per_frame": 0.0}
+    assert [(f.replays, f.eager) for f in frames] == [(2, 2), (0, 4)]
+    assert [(f.part_replays, f.part_eager, f.eager_ops)
+            for f in frames] == [(2, 1, 3), (0, 3, 3)]
+    assert tracing.stage_counts(frames) == {
+        "replays_per_frame": 1.0, "eager_per_frame": 3.0,
+        "part_replays_per_frame": 1.0, "part_eager_per_frame": 2.0,
+        "eager_ops_per_frame": 3.0}
+    assert tracing.stage_counts([]) == {
+        "replays_per_frame": 0.0, "eager_per_frame": 0.0,
+        "part_replays_per_frame": 0.0, "part_eager_per_frame": 0.0,
+        "eager_ops_per_frame": 0.0}
 
 
 def test_counters_of_recorded_frames(monkeypatch):
