@@ -1,10 +1,10 @@
 """The frame step's stages, run op by op or as CUDA graphs.
 
-`pipeline.py` calls every stage of the frame step through `stage(name, fn,
-*args)`: one definition of each stage, `fn`, and one runner that decides
-how it runs. Outside `StageGraphs.step()`, so on the CPU and in the
-sharded step, a stage runs eagerly inside `tracing.stage(name)`, as the
-step always has.
+`pipeline.py` and `parallel/pipeline_sharded.py` call every stage of
+their frame steps through `stage(name, fn, *args)`: one definition of each
+stage, `fn`, and one runner that decides how it runs. Outside
+`StageGraphs.step()`, so on the CPU and in the sharded step, a stage runs
+eagerly inside `tracing.stage(name)`, as the step always has.
 
 `SupersurfelFusion` on a CUDA device runs its steps under a `StageGraphs`
 runner. Each stage outside `HOST_STAGES` is then one CUDA graph:
@@ -32,19 +32,19 @@ patched after the capture is not seen (a patched `fn` is: it is part of
 the signature). A stage that cannot be captured raises; it is never run
 eagerly in its place without a word.
 
-`HOST_STAGES` lists the stages that make the host wait inside and so are
-not captured whole: `mod`, whose rigid RANSAC takes two `torch.linalg.svd`
-calls that read their convergence flags on the host. Such a stage's Python
-runs every frame inside its stage span and range. It calls its
-fixed-shape work as parts, `part(name, fn, *args)`, and the waiting ops
-eagerly between them (`tracing.eager_op`). Under the runner a part is
-warmed, captured and replayed exactly as a stage is (the same signature,
-copies in and out, pool and side stream) inside a recorder span of its
-own (`tracing.part`) and no profiler range, so the stage's range holds
-all of its device work; outside it a part is `fn(*args)` in that span.
-`tracing` counts the parts replayed and run eagerly, and the eager ops.
-The `ferns` and `loop_closure` stages (the gate is read on the host) open
-their ranges themselves and always run op by op.
+`HOST_STAGES` lists the stages whose Python runs every frame, op by op
+or in parts, inside their stage span and range. `mod` makes the host wait
+inside: its rigid RANSAC takes two `torch.linalg.svd` calls that read
+their convergence flags on the host. It calls its fixed-shape work as
+parts, `part(name, fn, *args)`, and the waiting ops eagerly between them
+(`tracing.eager_op`). Under the runner a part is warmed, captured and
+replayed exactly as a stage is (the same signature, copies in and out,
+pool and side stream) inside a recorder span of its own (`tracing.part`)
+and no profiler range, so the stage's range holds all of its device work;
+outside it a part is `fn(*args)` in that span. `tracing` counts the parts
+replayed and run eagerly, and the eager ops. `loop_closure` reads the
+fern gate on the host and runs the closure only where it fires; `ferns`
+runs op by op.
 """
 
 from __future__ import annotations
@@ -59,7 +59,9 @@ from supersurfel_fusion_tpu_torch import tracing
 
 Tensor = torch.Tensor
 
-HOST_STAGES = frozenset({"mod"})
+# `ferns` waits for nothing: graphing it (and the gate's arithmetic before
+# the read) is taking its name out of this set
+HOST_STAGES = frozenset({"mod", "ferns", "loop_closure"})
 # dtypes the multi-tensor copy takes on a card (not uint16, the raw depth)
 _MULTI = frozenset({torch.float32, torch.float64, torch.float16,
                     torch.bfloat16, torch.int64, torch.int32, torch.int16,
@@ -69,26 +71,22 @@ _current = None   # the runner of the step being run, if any
 
 
 def stage(name: str, fn, *args):
-    """Stage `name` of the frame step, `fn(*args)`, through the runner in
-    use (op by op outside `StageGraphs.step`)."""
-    if _current is None:
-        return _eager(name, fn, args)
-    return _current.run(name, fn, args)
+    """Stage `name` of the frame step, `fn(*args)`: a CUDA graph under a
+    runner (`StageGraphs.step`) unless it is in `HOST_STAGES`, else op by
+    op inside `tracing.stage(name)`."""
+    if _current is None or name in HOST_STAGES:
+        with tracing.stage(name):
+            return fn(*args)
+    return _current.graphed(name, fn, args, tracing.stage)
 
 
 def part(name: str, fn, *args):
-    """Part `name` of a stage in `HOST_STAGES`, `fn(*args)`, through the
-    runner in use (op by op inside `tracing.part(name)` outside
-    `StageGraphs.step`)."""
+    """Part `name` of a stage in `HOST_STAGES`, `fn(*args)`: a CUDA graph
+    under a runner, else op by op inside `tracing.part(name)`."""
     if _current is None:
         with tracing.part(name):
             return fn(*args)
-    return _current.run_part(name, fn, args)
-
-
-def _eager(name: str, fn, args):
-    with tracing.stage(name):
-        return fn(*args)
+    return _current.graphed(name, fn, args, tracing.part)
 
 
 def signature(name: str, fn, args):
@@ -170,15 +168,7 @@ class StageGraphs:
         finally:
             _current = old
 
-    def run(self, name, fn, args):
-        if name in HOST_STAGES:
-            return _eager(name, fn, args)
-        return self._graphed(name, fn, args, tracing.stage)
-
-    def run_part(self, name, fn, args):
-        return self._graphed(name, fn, args, tracing.part)
-
-    def _graphed(self, name, fn, args, scope):
+    def graphed(self, name, fn, args, scope):
         """`fn(*args)` inside `scope(name, replay)`: run eagerly on the
         first call with its signature, captured on the second, replayed
         after."""

@@ -48,13 +48,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from supersurfel_fusion_tpu_torch import tracing
+from supersurfel_fusion_tpu_torch import graphs
 from supersurfel_fusion_tpu_torch.config import PipelineConfig
-from supersurfel_fusion_tpu_torch.models.person_detector import (
-    PersonDetector,
-    load_detector,
-)
-from supersurfel_fusion_tpu_torch.ops import deformation
+from supersurfel_fusion_tpu_torch.models.person_detector import PersonDetector
 from supersurfel_fusion_tpu_torch.ops import icp as icp_ops
 from supersurfel_fusion_tpu_torch.ops import loop_closure as lc_ops
 from supersurfel_fusion_tpu_torch.ops import motion as motion_ops
@@ -69,16 +65,18 @@ from supersurfel_fusion_tpu_torch.parallel.sharding import (
     make_distributed_model,
 )
 from supersurfel_fusion_tpu_torch.pipeline import (
+    FernLookup,
+    LoopCarry,
     _target_maps,
+    _upload,
     fern_codes,
-    frame_inputs,
     front_end,
+    init_carried,
     keypoints_3d,
     motion_and_vo,
-    reset_map_if,
     update_local_map,
 )
-from supersurfel_fusion_tpu_torch.types import Pose
+from supersurfel_fusion_tpu_torch.types import Pose, Supersurfels
 from supersurfel_fusion_tpu_torch.utils.geometry import orthonormalize
 
 Tensor = torch.Tensor
@@ -129,29 +127,14 @@ def init_sharded_state(cfg: PipelineConfig, mesh: Mesh) -> ShardedSLAMState:
     keyframe store's capacities must divide by the number of ranks."""
     check_supported(cfg)
     dev = mesh.device
-    i32 = dict(dtype=torch.int32, device=dev)
     kp_cap = keypoint_capacity(cfg.vo, cfg.cam.height, cfg.cam.width)
     rows = kf_sh.local_rows(cfg.ferns.max_keyframes, mesh.axis_size)
-    detector = None
-    if cfg.mod.enabled and cfg.mod.use_yolo and cfg.mod.weights_path:
-        detector = load_detector(cfg.mod.weights_path, dev)
-    if cfg.enable_loop_closure and cfg.enable_sparse_vo \
-            and dev.type == "cuda":
-        deformation.warm_up(dev)
     return ShardedSLAMState(
         model=make_distributed_model(cfg.fusion.nb_supersurfels_max, mesh),
         kf_store=lc_ops.KeyframeStore.empty(rows, cfg.ferns.nb_ferns, kp_cap,
                                             cfg.nb_superpixels, dev),
-        pose=Pose.identity(dev),
-        stamp=torch.zeros((), **i32),
-        local_map=vo_ops.LocalMap.empty(cfg.vo.local_map_capacity, dev),
-        mod_prev=motion_ops.init_prev(cfg.cam.height, cfg.cam.width, kp_cap,
-                                      cfg.tps.cell_size, dev),
-        prev_fern_id=torch.full((), -1, **i32),
-        last_lc_stamp=torch.full((), -(10**6), **i32),
-        lc_count=torch.zeros((), **i32),
-        nb_visible_total=torch.zeros((), **i32),
-        detector=detector,
+        nb_visible_total=torch.zeros((), dtype=torch.int32, device=dev),
+        **init_carried(cfg, dev, kp_cap),
     )
 
 
@@ -176,30 +159,102 @@ def _rank0(mesh: Mesh):
     return agree
 
 
+def _icp(model: DistributedModel, nb_visible_total: Tensor,
+         target_maps: Tensor, pose: Pose, mesh: Mesh, cfg: PipelineConfig):
+    """Stage icp over the sharded model. Returns (pose, ICP valid)."""
+    R_view = pose.R.T
+    t_view = -(R_view @ pose.t)
+    icp = icp_ops.symmetric_icp(model.surfels, model.nb_visible_local,
+                                target_maps, R_view, t_view, cfg.cam,
+                                cfg.icp, mesh=mesh)
+    use = icp.valid & (nb_visible_total > 0)
+    R_new = orthonormalize(pose.R @ icp.R_rel)
+    t_new = pose.R @ icp.t_rel + pose.t
+    return Pose(torch.where(use, R_new, pose.R),
+                torch.where(use, t_new, pose.t)), icp.valid
+
+
+def _ferns(rgb: Tensor, fdepth: Tensor, kp, db, mesh: Mesh,
+           cfg: PipelineConfig):
+    """Stage ferns. Returns (each local row's global id, FernLookup)."""
+    kf_gids = kf_sh.global_ids(db.codes.shape[0], mesh)
+    codes = fern_codes(rgb, fdepth, cfg)
+    best_id, _, is_new = kf_sh.query_sharded(
+        db.codes, db.count, codes, cfg.ferns.new_frame_thresh, mesh)
+    return kf_gids, FernLookup(codes, best_id, is_new,
+                               *keypoints_3d(kp, fdepth, cfg))
+
+
+def _loop_closure(fl: FernLookup, c: LoopCarry, kf_gids: Tensor,
+                  nb_loc: Tensor, prev_fern_id: Tensor, stamp: Tensor,
+                  frame: Supersurfels, kp, fdepth: Tensor,
+                  target_maps: Tensor, mesh: Mesh, cfg: PipelineConfig):
+    """Stage loop_closure over the sharded model and store. Returns
+    (carried values, ShardedFrameOutput fields)."""
+    db = c.kf_store.db
+    fire = fl.gate(db.count,
+                   kf_sh.get_stamp_sharded(db.stamps, fl.best_id, mesh),
+                   prev_fern_id, stamp, c.last_lc, cfg.ferns.min_frame_gap)
+    accepted = torch.zeros((), dtype=torch.bool, device=stamp.device)
+    if fire:
+        payload = kf_sh.get_payload_sharded(c.kf_store, fl.best_id, mesh)
+        lc = lc_ops.close_global_loop(
+            c.kf_store, fl.best_id, c.surfels, nb_loc, frame, kp, fl.kp_p3d,
+            fl.kp_depth_ok, target_maps, c.pose, stamp, cfg.cam, cfg.icp,
+            mesh=mesh, payload=payload, kf_gids=kf_gids)
+        accepted = lc.accepted
+        c = c.closed(lc, stamp, kp, fdepth, cfg)
+    return c, dict(lc_gate=fire, lc_accepted=accepted)
+
+
+def _fusion(model: DistributedModel, frame: Supersurfels, labels: Tensor,
+            plane_depth: Tensor, pose: Pose, stamp: Tensor,
+            icp_valid: Tensor, mesh: Mesh, cfg: PipelineConfig):
+    """Stage fusion, with no bootstrap branch: on an empty model nothing
+    matches and the first frame inserts on rank 0. Returns (the model,
+    its live and visible counts summed over the ranks)."""
+    new = DistributedModel(*local_model_update(
+        *model, frame, labels, plane_depth, pose.R, pose.t, stamp, cfg.cam,
+        cfg.fusion, cfg.conf_thresh, mesh))
+    if cfg.fusion.freeze_on_tracking_loss and cfg.enable_icp:
+        # replicated predicate: icp.valid comes from the summed system, the
+        # total from one more int32 sum
+        keep = icp_valid | (psum(model.nb_local, mesh) == 0)
+        new = where_tree(keep, new, model)
+    return new, psum(torch.stack([new.nb_local, new.nb_visible_local]), mesh)
+
+
+def _keyframe(kf_store: lc_ops.KeyframeStore, fl: FernLookup, pose: Pose,
+              stamp: Tensor, kp, frame: Supersurfels, mesh: Mesh):
+    """Stage ferns' keyframe snapshot, stored on its owner rank."""
+    return kf_sh.add_keyframe_sharded(
+        kf_store, kf_store.db.count, fl.codes, pose.R, pose.t, stamp, kp.xy,
+        fl.kp_p3d, kp.desc, kp.valid & fl.kp_depth_ok, frame.positions,
+        frame.orientations[:, 2, :], frame.colors, frame.confidences > 0.0,
+        mesh, when=fl.is_new)[0]
+
+
 def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
     """The sharded frame step: step(state, rgb, depth) -> (state,
     ShardedFrameOutput), with the inputs of `pipeline.process_frame`.
     Every rank calls it with the same frame."""
     check_supported(cfg)
-    cam = cfg.cam
     use_ferns = (cfg.ferns.enabled or cfg.enable_loop_closure) \
         and cfg.enable_sparse_vo
     agree = _rank0(mesh) if mesh.axis_size > 1 else None
 
     def step(state: ShardedSLAMState, rgb, depth):
         dev = mesh.device
-        rgb, depth = frame_inputs(rgb, depth, cfg, dev)
+        rgb, depth = _upload(rgb, dev), _upload(depth, dev)
         stamp = state.stamp
-        surfels = state.model.surfels
-        nb_loc = state.model.nb_local
-        nb_vis = state.model.nb_visible_local
 
         # replicated front half, MOD and VO (pipeline.py steps 1-8)
         fe = front_end(rgb, depth, cfg, stamp)
-        fdepth, tps, plane_depth = fe.fdepth, fe.tps, fe.plane_depth
+        rgb, fdepth, tps = fe.rgb, fe.fdepth, fe.tps
+        plane_depth = fe.plane_depth
         mv = motion_and_vo(rgb, fe, state.pose, state.local_map,
                            state.mod_prev, state.detector, cfg, agree=agree)
-        frame, kp, pose, lmap = mv.frame, mv.kp, mv.pose, mv.local_map
+        frame, kp, pose = mv.frame, mv.kp, mv.pose
 
         # dense ICP over the sharded model (step 9)
         target_maps = None
@@ -207,102 +262,46 @@ def make_process_frame_sharded(mesh: Mesh, cfg: PipelineConfig):
         if cfg.enable_icp or cfg.enable_loop_closure:
             target_maps = _target_maps(frame, tps.labels, plane_depth, cfg)
         if cfg.enable_icp:
-            with tracing.stage("icp"):
-                R_view = pose.R.T
-                t_view = -(R_view @ pose.t)
-                icp = icp_ops.symmetric_icp(surfels, nb_vis, target_maps,
-                                            R_view, t_view, cam, cfg.icp,
-                                            mesh=mesh)
-                use = icp.valid & (state.nb_visible_total > 0)
-                R_new = orthonormalize(pose.R @ icp.R_rel)
-                t_new = pose.R @ icp.t_rel + pose.t
-                pose = Pose(torch.where(use, R_new, pose.R),
-                            torch.where(use, t_new, pose.t))
-                icp_valid = icp.valid
+            pose, icp_valid = graphs.stage("icp", _icp, state.model,
+                                           state.nb_visible_total,
+                                           target_maps, pose, mesh, cfg)
 
         # fern place recognition + global loop closure (steps 10-11)
-        kf_store = state.kf_store
+        lc = LoopCarry(pose, state.model.surfels, state.kf_store,
+                       state.last_lc_stamp, state.lc_count, mv.local_map)
         prev_fern_id = state.prev_fern_id
-        last_lc = state.last_lc_stamp
-        lc_count = state.lc_count
         out = {}
         if use_ferns:
-            with tracing.stage("ferns"):
-                kf_gids = kf_sh.global_ids(kf_store.db.codes.shape[0], mesh)
-                codes = fern_codes(rgb, fdepth, cfg)
-                best_id, _, is_new = kf_sh.query_sharded(
-                    kf_store.db.codes, kf_store.db.count, codes,
-                    cfg.ferns.new_frame_thresh, mesh)
-                kp_p3d, kp_depth_ok = keypoints_3d(kp, fdepth, cfg)
-            out.update(fern_id=best_id, fern_new=is_new)
-        if use_ferns and cfg.enable_loop_closure:
-            with tracing.stage("loop_closure"):
-                db = kf_store.db
-                gap = cfg.ferns.min_frame_gap
-                kf_stamp_best = kf_sh.get_stamp_sharded(db.stamps, best_id,
-                                                        mesh)
-                gate = (~is_new & (db.count > 0) & (best_id != prev_fern_id)
-                        & (stamp - last_lc > gap)
-                        & (stamp - kf_stamp_best > gap))
-                # the frame's one host read; the same value on every rank
-                fire = bool(gate)
-                accepted = torch.zeros((), dtype=torch.bool, device=dev)
-                if fire:
-                    payload = kf_sh.get_payload_sharded(kf_store, best_id,
-                                                        mesh)
-                    lc = lc_ops.close_global_loop(
-                        kf_store, best_id, surfels, nb_loc, frame, kp,
-                        kp_p3d, kp_depth_ok, target_maps, pose, stamp, cam,
-                        cfg.icp, mesh=mesh, payload=payload,
-                        kf_gids=kf_gids)
-                    accepted = lc.accepted
-                    pose = lc.pose
-                    surfels = lc.model
-                    kf_store = kf_store._replace(db=db._replace(
-                        poses_R=lc.kf_poses_R, poses_t=lc.kf_poses_t))
-                    last_lc = torch.where(accepted, stamp, last_lc)
-                    lc_count = lc_count + accepted.to(torch.int32)
-                    lmap = reset_map_if(accepted, kp, fdepth, pose, lmap,
-                                        cfg)
-            out.update(lc_gate=fire, lc_accepted=accepted)
-        if use_ferns:
-            prev_fern_id = torch.where(is_new, kf_store.db.count, best_id)
+            kf_gids, fl = graphs.stage("ferns", _ferns, rgb, fdepth, kp,
+                                       state.kf_store.db, mesh, cfg)
+            out.update(fern_id=fl.best_id, fern_new=fl.is_new)
+            if cfg.enable_loop_closure:
+                lc, lc_out = graphs.stage(
+                    "loop_closure", _loop_closure, fl, lc, kf_gids,
+                    state.model.nb_local, prev_fern_id, stamp, frame, kp,
+                    fdepth, target_maps, mesh, cfg)
+                out.update(lc_out)
+            prev_fern_id = fl.next_id(lc.kf_store.db.count)
+        pose, kf_store = lc.pose, lc.kf_store
 
         # local map (step 12)
-        lmap = update_local_map(mv, fdepth, tps.labels, pose, lmap, cfg)
+        lmap = update_local_map(mv, fdepth, tps.labels, pose, lc.local_map,
+                                cfg)
 
-        # sharded fusion, insertion, filtering and compaction (step 13):
-        # no bootstrap branch; on an empty model nothing matches and the
-        # first frame inserts on rank 0
-        with tracing.stage("fusion"):
-            new_surfels, nb_live, nb_vis_new = local_model_update(
-                surfels, nb_loc, nb_vis, frame, tps.labels, plane_depth,
-                pose.R, pose.t, stamp, cam, cfg.fusion, cfg.conf_thresh,
-                mesh)
-            if cfg.fusion.freeze_on_tracking_loss and cfg.enable_icp:
-                # replicated predicate: icp.valid comes from the summed
-                # system, the total from one more int32 sum
-                keep = icp_valid | (psum(nb_loc, mesh) == 0)
-                new_surfels, nb_live, nb_vis_new = where_tree(
-                    keep, (new_surfels, nb_live, nb_vis_new),
-                    (surfels, nb_loc, nb_vis))
-            tot = psum(torch.stack([nb_live, nb_vis_new]), mesh)
+        # sharded fusion, insertion, filtering and compaction (step 13)
+        model, tot = graphs.stage(
+            "fusion", _fusion, state.model._replace(surfels=lc.surfels),
+            frame, tps.labels, plane_depth, pose, stamp, icp_valid, mesh, cfg)
 
         # keyframe snapshot on its owner rank (step 14)
         if use_ferns:
-            with tracing.stage("ferns"):
-                kf_store, _ = kf_sh.add_keyframe_sharded(
-                    kf_store, kf_store.db.count, codes, pose.R, pose.t,
-                    stamp, kp.xy, kp_p3d, kp.desc, kp.valid & kp_depth_ok,
-                    frame.positions, frame.orientations[:, 2, :],
-                    frame.colors, frame.confidences > 0.0, mesh,
-                    when=is_new)
+            kf_store = graphs.stage("ferns", _keyframe, kf_store, fl, pose,
+                                    stamp, kp, frame, mesh)
 
         new_state = ShardedSLAMState(
-            model=DistributedModel(new_surfels, nb_live, nb_vis_new),
-            kf_store=kf_store, pose=pose, stamp=stamp + 1, local_map=lmap,
-            mod_prev=mv.mod_prev, prev_fern_id=prev_fern_id,
-            last_lc_stamp=last_lc, lc_count=lc_count,
+            model=model, kf_store=kf_store, pose=pose, stamp=stamp + 1,
+            local_map=lmap, mod_prev=mv.mod_prev, prev_fern_id=prev_fern_id,
+            last_lc_stamp=lc.last_lc, lc_count=lc.lc_count,
             nb_visible_total=tot[1], detector=state.detector)
         return new_state, ShardedFrameOutput(
             pose=pose, nb_total=tot[0], vo_valid=mv.vo_valid,

@@ -22,18 +22,12 @@ tracking loss on frames whose ICP was gate-rejected against a live model
 (`fusion.freeze_on_tracking_loss` keeps the whole model,
 `fusion.insert_requires_icp` only skips insertion), both selects on the
 device. Each frame step is a frame span of the port's span recorder
-(`tracing.py`), and each stage in it a recorder span around a
-`torch.profiler.record_function` range named "ssf.<stage>". Every stage
-but `ferns` and `loop_closure` is one function called through
-`graphs.stage`, which runs it op by op or, in `SupersurfelFusion` on a
-CUDA device, as a CUDA graph captured from that function (`graphs.py`;
-`mod` runs its Python every frame: its three parts are graphs there, with
-the two SVDs of its rigid RANSAC run eagerly between them). The stages'
-parts are recorder spans alone, so the profiler sees the stage ranges side
-by side. The benchmark (`slam_bench/`) reads both: the ranges under its
-profiler, the recorder's spans of the frames it does not profile and their
-launches in the frames it does. The runners report the mean host ms of
-each span (`stage_ms`).
+(`tracing.py`); each stage in it is one function called through
+`graphs.stage`, which opens its "ssf.<stage>" span and profiler range and
+runs it op by op or, in `SupersurfelFusion` on a CUDA device, as a CUDA
+graph (`graphs.py`, where `HOST_STAGES` names those whose Python runs
+every frame). The benchmark (`slam_bench/`) reads both the ranges and
+the spans.
 
 One step needs the host: with loop closure on, the frame step reads the
 fern gate once per frame and runs `close_global_loop` only on a frame
@@ -159,6 +153,24 @@ def init_state(cfg: PipelineConfig,
         nb_visible=torch.zeros((), **i32),
     )
     kp_cap = keypoint_capacity(cfg.vo, cfg.cam.height, cfg.cam.width)
+    return SLAMState(
+        model=model,
+        kf_store=lc_ops.KeyframeStore.empty(
+            cfg.ferns.max_keyframes, cfg.ferns.nb_ferns, kp_cap,
+            cfg.nb_superpixels, dev),
+        vis_peak=torch.zeros((), **i32),
+        dropped_total=torch.zeros((), **i32),
+        traj=torch.zeros((cfg.max_frames, 12), dtype=torch.float32,
+                         device=dev),
+        **init_carried(cfg, dev, kp_cap),
+    )
+
+
+def init_carried(cfg: PipelineConfig, dev: torch.device, kp_cap: int) -> dict:
+    """The state fields the single-device and the sharded step start
+    alike, the person detector among them (where `cfg` names its
+    weights); with loop closure on a card, the graph solver warmed up."""
+    i32 = dict(dtype=torch.int32, device=dev)
     # a missing weights file raises: there is no quiet fallback to the
     # simple path, which runs only when no weights are named
     detector = None
@@ -167,25 +179,16 @@ def init_state(cfg: PipelineConfig,
     if cfg.enable_loop_closure and cfg.enable_sparse_vo \
             and dev.type == "cuda":
         deformation.warm_up(dev)
-    return SLAMState(
-        model=model,
+    return dict(
         pose=Pose.identity(dev),
         stamp=torch.zeros((), **i32),
         local_map=vo_ops.LocalMap.empty(cfg.vo.local_map_capacity, dev),
         mod_prev=motion_ops.init_prev(cfg.cam.height, cfg.cam.width,
                                       kp_cap, cfg.tps.cell_size, dev),
-        kf_store=lc_ops.KeyframeStore.empty(
-            cfg.ferns.max_keyframes, cfg.ferns.nb_ferns, kp_cap,
-            cfg.nb_superpixels, dev),
         prev_fern_id=torch.full((), -1, **i32),
         last_lc_stamp=torch.full((), -(10**6), **i32),
         lc_count=torch.zeros((), **i32),
-        vis_peak=torch.zeros((), **i32),
-        dropped_total=torch.zeros((), **i32),
-        traj=torch.zeros((cfg.max_frames, 12), dtype=torch.float32,
-                         device=dev),
-        detector=detector,
-    )
+        detector=detector)
 
 
 def _segment(rgb: Tensor, disp: Tensor, cfg: PipelineConfig):
@@ -299,7 +302,7 @@ def _planes(tps: tps_ops.TPSResult, cfg: PipelineConfig):
 def front_end(rgb: Tensor, depth: Tensor, cfg: PipelineConfig,
               stamp: Tensor) -> FrontEnd:
     """Steps 1-6 of the frame step on rgb (H, W, 3) and depth (H, W) on the
-    device (as `frame_inputs` takes them; integer inputs are converted in
+    device (as `process_frame` takes them; integer inputs are converted in
     stage depth): depth prefilter, TPS superpixels, plane smoothing,
     slanted-plane depth and supersurfel generation."""
     # 1. depth prefilter + disparity
@@ -313,14 +316,6 @@ def front_end(rgb: Tensor, depth: Tensor, cfg: PipelineConfig,
         cfg.cam, cfg.tps, cfg.generation, cfg.fusion.range_min,
         cfg.fusion.range_max, stamp)
     return FrontEnd(fdepth, tps, plane_depth, frame, rgb)
-
-
-def frame_inputs(rgb, depth, cfg: PipelineConfig, dev: torch.device):
-    """rgb (H, W, 3) and depth (H, W) as float32 tensors on `dev`, depth
-    in metres: uint8/float rgb, raw uint16 depth counts (scaled by
-    cfg.depth_scale) or float32 metres, as numpy arrays or tensors.
-    Integer inputs are converted on the device."""
-    return _as_float(_upload(rgb, dev), _upload(depth, dev), cfg)
 
 
 class MotionVO(NamedTuple):
@@ -417,14 +412,88 @@ def fern_codes(rgb: Tensor, fdepth: Tensor, cfg: PipelineConfig) -> Tensor:
                                    cfg.ferns.pyramid_level)
 
 
-def reset_map_if(accepted: Tensor, kp, fdepth: Tensor, pose: Pose,
-                 lmap: vo_ops.LocalMap,
-                 cfg: PipelineConfig) -> vo_ops.LocalMap:
-    """An accepted closure resets the VO local map at the corrected pose
-    (a masked device update)."""
-    reset_map = vo_ops.reset_local_map(kp, fdepth, pose.R, pose.t, cfg.cam,
+class FernLookup(NamedTuple):
+    """What stage ferns finds of the frame (`keypoints_3d` for the last
+    two)."""
+
+    codes: Tensor        # (n_ferns,)
+    best_id: Tensor      # () int32 the best keyframe
+    is_new: Tensor       # () bool the frame is a new keyframe
+    kp_p3d: Tensor
+    kp_depth_ok: Tensor
+
+    def gate(self, count: Tensor, kf_stamp: Tensor, prev_fern_id: Tensor,
+             stamp: Tensor, last_lc: Tensor, gap: int) -> bool:
+        """Whether frame `stamp` tries a loop closure, read on the host:
+        the frame step's one wait. `kf_stamp`: the best keyframe's
+        stamp."""
+        return bool(~self.is_new & (count > 0)
+                    & (self.best_id != prev_fern_id)
+                    & (stamp - last_lc > gap) & (stamp - kf_stamp > gap))
+
+    def next_id(self, count: Tensor) -> Tensor:
+        """The next frame's `prev_fern_id`: a new keyframe takes the next
+        id (ferns.cu: bestKeyFrameId = keyFrames.size())."""
+        return torch.where(self.is_new, count, self.best_id)
+
+
+def _ferns(rgb: Tensor, fdepth: Tensor, kp: Keypoints, db,
+           cfg: PipelineConfig) -> FernLookup:
+    """Stage ferns: the frame's codes looked up among the keyframes."""
+    codes = fern_codes(rgb, fdepth, cfg)
+    best_id, _, is_new = ferns_ops.query(db, codes,
+                                         cfg.ferns.new_frame_thresh)
+    return FernLookup(codes, best_id, is_new, *keypoints_3d(kp, fdepth, cfg))
+
+
+class LoopCarry(NamedTuple):
+    """The carried values a loop closure corrects."""
+
+    pose: Pose
+    surfels: Supersurfels    # the model (a sharded step: this rank's block)
+    kf_store: lc_ops.KeyframeStore
+    last_lc: Tensor          # () int32 stamp of the last accepted closure
+    lc_count: Tensor         # () int32 accepted closures
+    local_map: vo_ops.LocalMap
+
+    def closed(self, lc: lc_ops.LoopClosureResult, stamp: Tensor,
+               kp: Keypoints, fdepth: Tensor,
+               cfg: PipelineConfig) -> "LoopCarry":
+        """The carried values after the closure `lc` of frame `stamp`; an
+        accepted one resets the VO local map at the corrected pose."""
+        acc = lc.accepted
+        kf_store = self.kf_store._replace(db=self.kf_store.db._replace(
+            poses_R=lc.kf_poses_R, poses_t=lc.kf_poses_t))
+        last_lc = torch.where(acc, stamp, self.last_lc)
+        lc_count = self.lc_count + acc.to(torch.int32)
+        reset = vo_ops.reset_local_map(kp, fdepth, *lc.pose, cfg.cam,
                                        cfg.vo.local_map_capacity)
-    return fusion_ops.where_tree(accepted, reset_map, lmap)
+        return LoopCarry(lc.pose, lc.model, kf_store, last_lc, lc_count,
+                         fusion_ops.where_tree(acc, reset, self.local_map))
+
+
+def _loop_closure(fl: FernLookup, c: LoopCarry, nb_supersurfels: Tensor,
+                  prev_fern_id: Tensor, stamp: Tensor, frame: Supersurfels,
+                  kp: Keypoints, fdepth: Tensor, labels: Tensor,
+                  plane_depth: Tensor, target_maps: Optional[Tensor],
+                  cfg: PipelineConfig):
+    """Stage loop_closure: the closure where the fern gate fires (the JAX
+    package's `lax.cond`). Returns (carried values, FrameOutput fields)."""
+    db = c.kf_store.db
+    fire = fl.gate(db.count, lc_ops.take_row(db.stamps, fl.best_id),
+                   prev_fern_id, stamp, c.last_lc, cfg.ferns.min_frame_gap)
+    accepted = torch.zeros((), dtype=torch.bool, device=stamp.device)
+    if not fire:
+        return c, dict(lc_gate=fire, lc_accepted=accepted)
+    tracing.count("lc.gate")
+    if target_maps is None:
+        target_maps = _target_maps(frame, labels, plane_depth, cfg)
+    lc_args = (c.kf_store, fl.best_id, c.surfels, nb_supersurfels, frame, kp,
+               fl.kp_p3d, fl.kp_depth_ok, target_maps, c.pose, stamp)
+    lc = lc_ops.close_global_loop(*lc_args, cfg.cam, cfg.icp)
+    return c.closed(lc, stamp, kp, fdepth, cfg), dict(
+        lc_gate=fire, lc_accepted=lc.accepted, lc_model=lc.model.positions,
+        lc_inputs=dict(zip(LC_INPUTS, lc_args)))
 
 
 def update_local_map(mv: MotionVO, fdepth: Tensor, labels: Tensor,
@@ -490,104 +559,64 @@ def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
     dev = state.stamp.device
     rgb, depth = _upload(rgb, dev), _upload(depth, dev)
 
-    cam = cfg.cam
     fe = front_end(rgb, depth, cfg, state.stamp)
     rgb, fdepth, tps, plane_depth = fe.rgb, fe.fdepth, fe.tps, fe.plane_depth
 
     # 7-8. moving-object detection + sparse feature VO
     mv = motion_and_vo(rgb, fe, state.pose, state.local_map, state.mod_prev,
                        state.detector, cfg)
-    frame, kp, pose, lmap = mv.frame, mv.kp, mv.pose, mv.local_map
-    mod_prev, is_static_sp = mv.mod_prev, mv.is_static_sp
-    vo_valid, vo_matches = mv.vo_valid, mv.vo_matches
+    frame, kp, pose = mv.frame, mv.kp, mv.pose
 
     # 9. dense symmetric ICP refinement against the visible model
     icp, pose, target_maps = graphs.stage("icp", _icp_step, state.model,
                                           frame, tps.labels, plane_depth,
                                           pose, cfg)
 
-    # 10-11. fern place recognition + global loop closure, op by op (the
-    # gate is read on the host)
-    kf_store = state.kf_store
-    prev_fern_id = state.prev_fern_id
-    last_lc = state.last_lc_stamp
-    lc_count = state.lc_count
-    model_surfels = state.model.surfels
-    fern_out = {}
+    # 10-11. fern place recognition + global loop closure
     use_ferns = (cfg.ferns.enabled or cfg.enable_loop_closure) \
         and cfg.enable_sparse_vo
+    lc = LoopCarry(pose, state.model.surfels, state.kf_store,
+                   state.last_lc_stamp, state.lc_count, mv.local_map)
+    prev_fern_id = state.prev_fern_id
+    fern_out = {}
     if use_ferns:
-        with tracing.stage("ferns"):
-            codes = fern_codes(rgb, fdepth, cfg)
-            best_id, _, is_new = ferns_ops.query(kf_store.db, codes,
-                                                 cfg.ferns.new_frame_thresh)
-            kp_p3d, kp_depth_ok = keypoints_3d(kp, fdepth, cfg)
-        fern_out = dict(fern_id=best_id, fern_new=is_new)
-    if use_ferns and cfg.enable_loop_closure:
-        with tracing.stage("loop_closure"):
-            db = kf_store.db
-            gap = cfg.ferns.min_frame_gap
-            kf_stamp_best = lc_ops.take_row(db.stamps, best_id)
-            gate = (~is_new & (db.count > 0) & (best_id != prev_fern_id)
-                    & (state.stamp - last_lc > gap)
-                    & (state.stamp - kf_stamp_best > gap))
-            # the one host wait of the frame step: the branch runs only
-            # on a frame where the gate fires
-            fire = bool(gate)
-            accepted = torch.zeros((), dtype=torch.bool, device=dev)
-            lc_model = lc_inputs = None
-            if fire:
-                tracing.count("lc.gate")
-                if target_maps is None:
-                    target_maps = _target_maps(frame, tps.labels,
-                                               plane_depth, cfg)
-                lc_args = (kf_store, best_id, model_surfels,
-                           state.model.nb_supersurfels, frame, kp, kp_p3d,
-                           kp_depth_ok, target_maps, pose, state.stamp)
-                lc = lc_ops.close_global_loop(*lc_args, cam, cfg.icp)
-                lc_inputs = dict(zip(LC_INPUTS, lc_args))
-                accepted = lc.accepted
-                pose = lc.pose
-                model_surfels = lc.model
-                lc_model = lc.model.positions
-                kf_store = kf_store._replace(db=db._replace(
-                    poses_R=lc.kf_poses_R, poses_t=lc.kf_poses_t))
-                last_lc = torch.where(accepted, state.stamp, last_lc)
-                lc_count = lc_count + accepted.to(torch.int32)
-                lmap = reset_map_if(accepted, kp, fdepth, pose, lmap, cfg)
-        fern_out.update(lc_gate=fire, lc_accepted=accepted,
-                        lc_model=lc_model, lc_inputs=lc_inputs)
-    if use_ferns:
-        # a new keyframe takes the next id (ferns.cu: bestKeyFrameId =
-        # keyFrames.size())
-        prev_fern_id = torch.where(is_new, kf_store.db.count, best_id)
+        fl = graphs.stage("ferns", _ferns, rgb, fdepth, kp,
+                          state.kf_store.db, cfg)
+        fern_out = dict(fern_id=fl.best_id, fern_new=fl.is_new)
+        if cfg.enable_loop_closure:
+            lc, out = graphs.stage(
+                "loop_closure", _loop_closure, fl, lc,
+                state.model.nb_supersurfels, prev_fern_id, state.stamp,
+                frame, kp, fdepth, tps.labels, plane_depth, target_maps, cfg)
+            fern_out.update(out)
+        prev_fern_id = fl.next_id(lc.kf_store.db.count)
+    pose, kf_store = lc.pose, lc.kf_store
 
     # 12. local-map maintenance with the final fused pose
-    lmap = update_local_map(mv, fdepth, tps.labels, pose, lmap, cfg)
+    lmap = update_local_map(mv, fdepth, tps.labels, pose, lc.local_map, cfg)
 
     # 13. model update / bootstrap, the trajectory ring
     model, fusion_stats, stamp, traj, vis_peak, dropped_total = graphs.stage(
-        "fusion", _fusion, state.model._replace(surfels=model_surfels),
+        "fusion", _fusion, state.model._replace(surfels=lc.surfels),
         frame, tps.labels, plane_depth, pose, icp.valid, state.stamp,
         state.traj, state.vis_peak, state.dropped_total, cfg)
 
     # 14. new-keyframe snapshot (Ferns::addKeyFrame), masked on the device
     if use_ferns:
-        with tracing.stage("ferns"):
-            kf_store = lc_ops.add_keyframe_payload(
-                kf_store, codes, pose, state.stamp, kp, kp_p3d, kp_depth_ok,
-                frame, when=is_new)
+        kf_store = graphs.stage(
+            "ferns", lc_ops.add_keyframe_payload, kf_store, fl.codes, pose,
+            state.stamp, kp, fl.kp_p3d, fl.kp_depth_ok, frame, fl.is_new)
 
     new_state = SLAMState(
         model=model, pose=pose, stamp=stamp, local_map=lmap,
-        mod_prev=mod_prev, kf_store=kf_store, prev_fern_id=prev_fern_id,
-        last_lc_stamp=last_lc, lc_count=lc_count, vis_peak=vis_peak,
+        mod_prev=mv.mod_prev, kf_store=kf_store, prev_fern_id=prev_fern_id,
+        last_lc_stamp=lc.last_lc, lc_count=lc.lc_count, vis_peak=vis_peak,
         dropped_total=dropped_total, traj=traj, detector=state.detector,
     )
     out = FrameOutput(
         pose=pose,
-        vo_valid=vo_valid,
-        vo_matches=vo_matches,
+        vo_valid=mv.vo_valid,
+        vo_matches=mv.vo_matches,
         icp_valid=icp.valid,
         icp_inliers=icp.inliers,
         icp_error=icp.error,
@@ -597,7 +626,7 @@ def _step(state: SLAMState, rgb, depth, cfg: PipelineConfig):
         nb_visible=model.nb_visible,
         labels=tps.labels,
         plane_depth=plane_depth,
-        static_sp=is_static_sp,
+        static_sp=mv.is_static_sp,
         n_fused=fusion_stats.n_fused,
         n_inserted=fusion_stats.n_inserted,
         n_removed=fusion_stats.n_removed,

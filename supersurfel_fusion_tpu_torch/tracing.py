@@ -5,20 +5,21 @@ Every range the port opens goes through this module:
 
 * `frame()`: the root span of one frame step (`pipeline.process_frame`);
   the recorder numbers the frames itself;
-* `stage(name)`: a stage of the step. It records a span "ssf.<name>"
-  around the profiler range `record_function("ssf.<name>")`, which the
-  port has always opened there, and counts the stage as run eagerly or,
-  with `replay=True`, as a CUDA graph replayed (`graphs.py`);
+* `stage(name)`: a stage of the step (`graphs.stage`). It records a span
+  "ssf.<name>" around the profiler range `record_function("ssf.<name>")`,
+  which the port has always opened there;
 * `span(name)`: a part of a stage ("tps.rgb", "features.score", ...),
   recorded here only: the profiler sees the stage ranges alone, side by
   side, as it did before there was a recorder;
 * `part(name)`: a part of a stage that the stage runner runs as a CUDA
-  graph of its own (`graphs.part`: "mod.a", ...), recorded here only and
-  counted as run eagerly or, with `replay=True`, replayed;
+  graph of its own (`graphs.part`: "mod.a", ...), recorded here only;
 * `eager_op(name)`: an op run eagerly between such parts because it
-  makes the host wait ("mod.svd"), recorded here only and counted;
+  makes the host wait ("mod.svd"), recorded here only;
 * `count(name, n)`: adds the host integer n to the open frame's counter
-  `name` (`lc.gate`: the loop-closure gate fired), kept on the frame.
+  `name`, kept on the frame: `lc.gate` (the loop-closure gate fired), and
+  those the spans above keep of themselves, `stage.eager` and
+  `stage.replay` (run op by op, or a CUDA graph replayed: `replay=True`),
+  `part.eager`, `part.replay` and `eager_op`.
 
 A stage's parts are recorded where its Python runs: on a replayed stage
 or part they are not, since the replay runs the graph captured from
@@ -58,20 +59,12 @@ _now = time.time_ns   # the profiler's clock (Unix epoch ns)
 class Frame(NamedTuple):
     """One recorded frame step: its number and its spans, each a list
     [name, parent index, start ns, end ns]; spans[0] is the frame span.
-    `replays` and `eager` count its stages replayed as CUDA graphs and run
-    op by op; `counts` holds its counters ({name: int}, `count`), or None
-    where none was counted. `part_replays` and `part_eager` count the
-    parts of a stage (`part`) replayed and run op by op, `eager_ops` the
-    ops run eagerly between them (`eager_op`)."""
+    `counts` holds its counters ({name: int}), or None where none was
+    counted."""
 
     number: int
     spans: list
-    replays: int = 0
-    eager: int = 0
     counts: dict | None = None
-    part_replays: int = 0
-    part_eager: int = 0
-    eager_ops: int = 0
 
     @property
     def start_ns(self) -> int:
@@ -91,9 +84,6 @@ class Recorder:
         self.count = 0         # frames numbered so far
         self._spans = None     # the open frame's spans, None outside one
         self._stack: list = []  # indices of the open spans
-        # the open frame's replayed and eager stages, replayed and eager
-        # parts, eager ops (indexed by a span's `slot`)
-        self._counts = [0] * 5
         self._counters: dict = {}  # the open frame's counters
 
 
@@ -101,14 +91,17 @@ RECORDER = Recorder()
 
 
 class _Span:
-    """A recorder-only span, counted in the open frame's `_counts[slot]`
-    unless `slot` is None; a no-op outside a frame."""
+    """A recorder span, counted in the open frame's counter `counter`
+    unless it is None, and with `ranged` inside the profiler range of its
+    name; the recorder's part is a no-op outside a frame."""
 
-    __slots__ = ("name", "rec", "slot")
+    __slots__ = ("name", "rec", "counter", "rf")
 
-    def __init__(self, name: str, slot: int | None = None):
+    def __init__(self, name: str, counter: str | None = None,
+                 ranged: bool = False):
         self.name = name
-        self.slot = slot
+        self.counter = counter
+        self.rf = record_function(name) if ranged else None
 
     def __enter__(self):
         spans = RECORDER._spans
@@ -119,33 +112,20 @@ class _Span:
             self.rec = rec = [self.name, stack[-1], _now(), 0]
             stack.append(len(spans))
             spans.append(rec)
-            if self.slot is not None:
-                RECORDER._counts[self.slot] += 1
+            if self.counter is not None:
+                count(self.counter)
+        if self.rf is not None:
+            self.rf.__enter__()
         return self
 
     def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         rec = self.rec
         if rec is not None:
             rec[3] = _now()
             RECORDER._stack.pop()
         return False
-
-
-class _Stage(_Span):
-    """A stage: the recorder's span "ssf.<name>" around the profiler
-    range of the same name, counted as replayed or eager."""
-
-    __slots__ = ("rf",)
-
-    def __enter__(self):
-        _Span.__enter__(self)
-        self.rf = record_function(self.name)
-        self.rf.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self.rf.__exit__(*exc)
-        return _Span.__exit__(self, *exc)
 
 
 class _Frame:
@@ -160,7 +140,6 @@ class _Frame:
         if rec.enabled:
             rec._spans = [[FRAME, -1, _now(), 0]]
             rec._stack = [0]
-            rec._counts = [0] * 5
             rec._counters = {}
         return self
 
@@ -172,10 +151,8 @@ class _Frame:
         spans[0][3] = _now()
         rec._spans, rec._stack = None, []
         if exc_type is None:   # a step that raised is not kept
-            c = rec._counts
-            rec.frames.append(Frame(self.number, spans, c[0], c[1],
-                                    rec._counters or None, c[2], c[3],
-                                    c[4]))
+            rec.frames.append(Frame(self.number, spans,
+                                    rec._counters or None))
         return False
 
 
@@ -184,11 +161,12 @@ def frame() -> _Frame:
     return _Frame()
 
 
-def stage(name: str, replay: bool = False) -> _Stage:
+def stage(name: str, replay: bool = False) -> _Span:
     """The stage `name`: a recorder span "ssf.<name>" around the profiler
     range of the same name; `replay`: the stage is a CUDA graph's
     replay."""
-    return _Stage("ssf." + name, 0 if replay else 1)
+    return _Span("ssf." + name, "stage.replay" if replay else "stage.eager",
+                 ranged=True)
 
 
 def span(name: str) -> _Span:
@@ -199,12 +177,12 @@ def span(name: str) -> _Span:
 def part(name: str, replay: bool = False) -> _Span:
     """A part of a stage run as a graph of its own (`graphs.part`),
     recorded here only; `replay`: the part is a CUDA graph's replay."""
-    return _Span(name, 2 if replay else 3)
+    return _Span(name, "part.replay" if replay else "part.eager")
 
 
 def eager_op(name: str) -> _Span:
     """An op run eagerly between a stage's parts, recorded here only."""
-    return _Span(name, 4)
+    return _Span(name, "eager_op")
 
 
 def count(name: str, n: int = 1) -> None:
@@ -244,8 +222,9 @@ def stage_counts(frames: list) -> dict:
     op by op, the same of stages' parts, and the mean ops per frame run
     eagerly between parts."""
     n = max(len(frames), 1)
-    return {"replays_per_frame": sum(f.replays for f in frames) / n,
-            "eager_per_frame": sum(f.eager for f in frames) / n,
-            "part_replays_per_frame": sum(f.part_replays for f in frames) / n,
-            "part_eager_per_frame": sum(f.part_eager for f in frames) / n,
-            "eager_ops_per_frame": sum(f.eager_ops for f in frames) / n}
+    return {key: sum((f.counts or {}).get(name, 0) for f in frames) / n
+            for key, name in (("replays_per_frame", "stage.replay"),
+                              ("eager_per_frame", "stage.eager"),
+                              ("part_replays_per_frame", "part.replay"),
+                              ("part_eager_per_frame", "part.eager"),
+                              ("eager_ops_per_frame", "eager_op"))}

@@ -14,6 +14,7 @@ from supersurfel_fusion_tpu.ops.depth import bilateral_filter as jbilateral
 from supersurfel_fusion_tpu.types import Supersurfels as JSurfels
 from supersurfel_fusion_tpu_torch import config as tcfg
 from supersurfel_fusion_tpu_torch import synthetic
+from supersurfel_fusion_tpu_torch.pipeline import FernLookup
 from supersurfel_fusion_tpu_torch.ops import deformation as tdefo
 from supersurfel_fusion_tpu_torch.ops import ferns as tferns
 from supersurfel_fusion_tpu_torch.types import Supersurfels as TSurfels
@@ -143,6 +144,27 @@ def test_query_agrees_empty_tie_and_full():
     assert int(tdb.count) == max_kf
     assert _query_both(tdb, jdb, codes[2])[:2] == (3, 0.0)
     assert _query_both(tdb, jdb, codes[5])[2]
+
+
+@pytest.mark.parametrize("shut", [None, "new keyframe", "empty store",
+                                  "same keyframe", "closure within gap",
+                                  "keyframe within gap"])
+def test_fern_gate_needs_all_five_conditions(shut):
+    """The loop-closure gate both frame steps read (`FernLookup.gate`):
+    frame 100 with a gap of 10 fires against keyframe 2 of 3, stamped 89,
+    after a closure at 89 and a lookup of keyframe 1 last frame; each one
+    condition failed keeps it shut (a closure or keyframe exactly `gap`
+    frames back is too recent)."""
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32)
+
+    fl = FernLookup(None, i32(2), torch.tensor(shut == "new keyframe"),
+                    None, None)
+    fire = fl.gate(i32(0 if shut == "empty store" else 3),
+                   i32(90 if shut == "keyframe within gap" else 89),
+                   i32(2 if shut == "same keyframe" else 1), i32(100),
+                   i32(90 if shut == "closure within gap" else 89), 10)
+    assert fire is (shut is None)
 
 
 def test_add_keyframe_past_capacity():

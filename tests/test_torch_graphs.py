@@ -8,9 +8,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 from torch.utils import _pytree as pytree
 
-from supersurfel_fusion_tpu_torch import graphs, tracing
+from supersurfel_fusion_tpu_torch import config as tcfg
+from supersurfel_fusion_tpu_torch import graphs, pipeline, synthetic, tracing
 from supersurfel_fusion_tpu_torch.config import PipelineConfig, TPSConfig
 from supersurfel_fusion_tpu_torch.types import Pose
+
+from test_torch_pipeline import small_config
 
 torch.set_num_threads(1)
 
@@ -91,7 +94,7 @@ def test_eager_runner_outside_a_step(monkeypatch):
     assert calls == [3]
     [f] = tracing.frames()
     assert [n for n, *_ in f.spans] == ["frame", "ssf.depth"]
-    assert (f.replays, f.eager) == (0, 1)
+    assert f.counts == {"stage.eager": 1}
     runner = graphs.StageGraphs(torch.device("cpu"))
     try:
         with runner.step():
@@ -100,6 +103,30 @@ def test_eager_runner_outside_a_step(monkeypatch):
     except KeyError:
         pass
     assert graphs._current is None
+
+
+def test_every_stage_goes_through_the_runner(monkeypatch):
+    """With ferns and loop closure on, each `ssf.*` span of two frame
+    steps is a stage `graphs.stage` was given, in order: no stage opens
+    its span and range by hand."""
+    cfg = small_config(tcfg, enable_loop_closure=True,
+                       ferns=tcfg.FernsConfig(enabled=True, max_keyframes=16,
+                                              min_frame_gap=1))
+    given, stage = [], graphs.stage
+
+    def recording(name, fn, *args):
+        given.append(name)
+        return stage(name, fn, *args)
+
+    monkeypatch.setattr(graphs, "stage", recording)
+    monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
+    state = pipeline.init_state(cfg, "cpu")
+    for rgb, depth, *_ in synthetic.frames(cfg.cam, 2):
+        state, out = pipeline.process_frame(state, rgb, depth, cfg)
+    assert out.lc_gate is False
+    assert [n[4:] for f in tracing.frames() for n, *_ in f.spans
+            if n.startswith("ssf.")] == given
+    assert (given.count("ferns"), given.count("loop_closure")) == (4, 2)
 
 
 def test_part_runs_op_by_op_in_its_span(monkeypatch):
@@ -127,8 +154,7 @@ def test_part_runs_op_by_op_in_its_span(monkeypatch):
     assert [(n, f.spans[p][0]) for n, p, *_ in f.spans[1:]] == [
         ("ssf.s", "frame"), ("s.a", "ssf.s"), ("s.op", "ssf.s"),
         ("s.b", "ssf.s")]
-    assert (f.replays, f.eager, f.part_replays, f.part_eager,
-            f.eager_ops) == (0, 1, 0, 2, 1)
+    assert f.counts == {"stage.eager": 1, "part.eager": 2, "eager_op": 1}
     names = {ev.name() for ev in prof.profiler.kineto_results.events()}
     assert "ssf.s" in names and not names & {"s.a", "s.op", "s.b",
                                               "ssf.s.a", "ssf.s.b"}
@@ -139,4 +165,5 @@ def test_part_runs_op_by_op_in_its_span(monkeypatch):
         assert graphs.stage("mod", torch.neg, x).eq(-1).all()
     [_, f] = tracing.frames()
     assert [n for n, *_ in f.spans] == ["frame", "s.b", "ssf.mod"]
-    assert (f.part_eager, f.eager) == (1, 1) and len(runner.warm) == 1
+    assert f.counts == {"part.eager": 1, "stage.eager": 1}
+    assert len(runner.warm) == 1

@@ -133,11 +133,12 @@ def test_graphs_equal_eager(run):
     assert rep["part_replays_per_frame"] == len(parts)
     assert rep["part_eager_per_frame"] == 0
     assert rep["eager_ops_per_frame"] == (2 if mod else 0)
-    f0, f1 = run["frames"][:2]
-    assert (f0.replays, f0.eager, f0.part_replays, f0.part_eager,
-            f0.eager_ops) == (0, len(GRAPHED) + mod, 0, len(parts), 2 * mod)
-    assert (f1.replays, f1.eager, f1.part_replays, f1.part_eager,
-            f1.eager_ops) == (len(GRAPHED), mod, len(parts), 0, 2 * mod)
+    counters = ("stage.replay", "stage.eager", "part.replay", "part.eager",
+                "eager_op")
+    f0, f1 = ([f.counts.get(c, 0) for c in counters]
+              for f in run["frames"][:2])
+    assert f0 == [0, len(GRAPHED) + mod, 0, len(parts), 2 * mod]
+    assert f1 == [len(GRAPHED), mod, len(parts), 0, 2 * mod]
     # the launchers run on every op-by-op frame and on the runner's eager
     # and capture frames; a replay runs the captured kernels without them
     assert run["launches"] == {"tps_iteration": 10 * (N_FRAMES + 2),
@@ -171,7 +172,7 @@ def test_replayed_frames_record_stages_alone(run):
         names = [n for n, *_ in f.spans]
         assert [n for n in names if n.startswith("ssf.")] == stages
         parts = {n for n in names if not n.startswith(("ssf.", "frame"))}
-        eager = f.replays == 0 or f is run["frames"][1]
+        eager = "stage.replay" not in f.counts or f is run["frames"][1]
         assert ("icp.iterate" in parts) == eager
         if mod:
             i = names.index("ssf.mod")
@@ -222,7 +223,7 @@ def test_ferns_stay_eager(cuda):
         state, out_e = pipeline.process_frame(state, rgb[k], depth[k], cfg)
         assert not differing((sf.state, out_g), (state, out_e)), k
     last = tracing.frames(first)[-2]
-    assert (last.replays, last.eager) == (len(GRAPHED), 2)
+    assert last.counts == {"stage.replay": len(GRAPHED), "stage.eager": 2}
     assert sf.graph_report([])["captured"] == GRAPHED
 
 

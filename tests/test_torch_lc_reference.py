@@ -264,8 +264,9 @@ def test_closure_parts_nest_under_the_loop_closure_stage(gate):
     The profiler sees the stage ranges alone, none inside another, and no
     `lc.*` part."""
     f = gate["frame"]
-    assert f.counts == {"lc.gate": 1}
     spans = f.spans
+    assert f.counts == {"lc.gate": 1, "stage.eager": sum(
+        n.startswith("ssf.") for n, *_ in spans)}
     parts = [(n, spans[p][0], s, e) for n, p, s, e in spans
              if n.startswith("lc.")]
     assert [p[0] for p in parts] == ["lc.relocalise", "lc.align",

@@ -382,6 +382,7 @@ def test_detect_motion_parts_equal_the_whole(case, monkeypatch):
              else ["mod.a", "mod.svd", "mod.b", "mod.svd", "mod.c"])
     for f in frames:
         assert [n for n, p, *_ in f.spans if p == 0] == parts
-        assert (f.part_replays, f.part_eager, f.eager_ops) == (
+        assert (f.counts.get("part.replay", 0), f.counts["part.eager"],
+                f.counts.get("eager_op", 0)) == (
             0, len(parts) - parts.count("mod.svd"), parts.count("mod.svd"))
     assert len(frames) == 4

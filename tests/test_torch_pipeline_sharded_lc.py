@@ -26,3 +26,12 @@ def test_sharded_full_step_matches_jax(runs):
 
 def test_sharded_full_step_agrees_across_rank_counts(runs):
     check_rank_counts(runs)
+
+
+def test_sharded_step_runs_every_stage_through_the_runner(runs):
+    """On 1 rank, each `ssf.*` span of the free-running sharded step is a
+    stage `graphs.stage` was given, in order, ferns twice a frame."""
+    one = runs["one"]
+    assert one["spans"] == one["stages"]
+    assert one["stages"].count("ferns") == 2 * len(one["free"])
+    assert one["stages"].count("loop_closure") == len(one["free"])

@@ -161,7 +161,7 @@ def test_cpu_runner_runs_every_stage_eagerly():
     for rgb, depth, *_ in synthetic.frames(cfg.cam, 2):
         sf.process(rgb, depth)
     frames = tracing.frames(first)
-    assert [(f.replays, f.eager) for f in frames] == [(0, len(STAGES))] * 2
+    assert [f.counts for f in frames] == [{"stage.eager": len(STAGES)}] * 2
     assert sf.graph_report(frames) == {
         "captured": [], "capture_ms": 0.0, "replays_per_frame": 0.0,
         "eager_per_frame": float(len(STAGES)), "part_replays_per_frame": 0.0,
@@ -191,9 +191,10 @@ def test_stage_counts_of_recorded_frames(monkeypatch):
                     with tracing.eager_op("m.op"):
                         pass
     frames = tracing.frames()
-    assert [(f.replays, f.eager) for f in frames] == [(2, 2), (0, 4)]
-    assert [(f.part_replays, f.part_eager, f.eager_ops)
-            for f in frames] == [(2, 1, 3), (0, 3, 3)]
+    assert [f.counts for f in frames] == [
+        {"stage.replay": 2, "stage.eager": 2, "part.replay": 2,
+         "part.eager": 1, "eager_op": 3},
+        {"stage.eager": 4, "part.eager": 3, "eager_op": 3}]
     assert tracing.stage_counts(frames) == {
         "replays_per_frame": 1.0, "eager_per_frame": 3.0,
         "part_replays_per_frame": 1.0, "part_eager_per_frame": 2.0,
@@ -206,8 +207,8 @@ def test_stage_counts_of_recorded_frames(monkeypatch):
 
 def test_counters_of_recorded_frames(monkeypatch):
     """`count` adds host integers to the open frame's counters, which the
-    frame keeps (None where nothing was counted); outside a frame, or
-    with the recorder off, it keeps nothing."""
+    frame keeps beside its stages' own (None where nothing was counted);
+    outside a frame, or with the recorder off, it keeps nothing."""
     monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
     tracing.count("lc.gate")
     for n in (2, 0):
@@ -225,6 +226,7 @@ def test_counters_of_recorded_frames(monkeypatch):
     finally:
         tracing.enable(True)
     frames = tracing.frames()
-    assert [f.counts for f in frames] == [{"lc.gate": 2, "other": 6}, None,
-                                          {"other": 0}, None]
+    assert [f.counts for f in frames] == [
+        {"stage.eager": 1, "lc.gate": 2, "other": 6}, None,
+        {"stage.eager": 1, "other": 0}, None]
     assert tracing.RECORDER._counters == {}

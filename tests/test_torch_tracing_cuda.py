@@ -62,13 +62,13 @@ def test_recorded_frames_make_no_host_wait(cuda):
     for f in frames[:3]:
         assert [n for n, *_ in f.spans] == ["frame"] + [
             "ssf." + s for s in stages]
-        assert (f.replays, f.eager) == (len(stages), 0)
+        assert f.counts == {"stage.replay": len(stages)}
     for f in frames[3:]:
         names = [n for n, *_ in f.spans]
         assert names.count("features.describe") == cfg.vo.nb_levels
         assert {"ssf.tps", "tps.rgbd", "icp.iterate", "fusion.filter"} \
             <= set(names)
-        assert (f.replays, f.eager) == (0, len(stages))
+        assert f.counts == {"stage.eager": len(stages)}
 
 
 def _host_waits(step) -> int:
@@ -112,6 +112,7 @@ def test_gate_frame_counter_and_spans_add_no_host_wait(cuda):
         tracing.enable(True)
     assert on == off and on >= 1, (on, off)
     (f,) = tracing.frames(first)
-    assert f.counts == {"lc.gate": 1}
+    assert f.counts == {"lc.gate": 1, "stage.eager": sum(
+        n.startswith("ssf.") for n, *_ in f.spans)}
     assert [n for n, *_ in f.spans if n.startswith("lc.")] == [
         "lc.relocalise", "lc.align", "lc.deform"]

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from supersurfel_fusion_tpu_torch import convert
+from supersurfel_fusion_tpu_torch import convert, graphs, tracing
 from supersurfel_fusion_tpu_torch.ops import deformation as defo
 from supersurfel_fusion_tpu_torch.ops.loop_closure import KeyframeStore
 from supersurfel_fusion_tpu_torch.parallel import ba
@@ -150,7 +150,9 @@ def _sharded_out(out):
 def pipeline_steps(mesh, cfg, frames, jax_states) -> dict:
     """The sharded frame step on `frames`: each frame from the JAX state
     carried over (when `jax_states` is given: one numpy ShardedSLAMState
-    per frame), and the frames free-running from an empty state."""
+    per frame), and the frames free-running from an empty state, each a
+    recorded frame, with the stages given to `graphs.stage` and the
+    recorder's `ssf.*` spans in order."""
     step = psh.make_process_frame_sharded(mesh, cfg)
     carried = []
     if jax_states is not None:
@@ -160,13 +162,26 @@ def pipeline_steps(mesh, cfg, frames, jax_states) -> dict:
             st, out = step(st, rgb, depth)
             carried.append(_sharded_out(out))
     st = psh.init_sharded_state(cfg, mesh)
-    free = []
-    for rgb, depth in frames:
-        st, out = step(st, rgb, depth)
-        free.append(_sharded_out(out))
+    free, given, stage = [], [], graphs.stage
+
+    def recording(name, fn, *args):
+        given.append(name)
+        return stage(name, fn, *args)
+
+    first = tracing.RECORDER.count
+    graphs.stage = recording
+    try:
+        for rgb, depth in frames:
+            with tracing.frame():
+                st, out = step(st, rgb, depth)
+            free.append(_sharded_out(out))
+    finally:
+        graphs.stage = stage
     return {"carried": carried, "free": free,
             "nb_local": int(st.model.nb_local),
-            "keyframes": int(st.kf_store.db.count)}
+            "keyframes": int(st.kf_store.db.count), "stages": given,
+            "spans": [n[4:] for f in tracing.frames(first)
+                      for n, *_ in f.spans if n.startswith("ssf.")]}
 
 
 def rank0_agreement(mesh) -> dict:
