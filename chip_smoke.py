@@ -9,11 +9,15 @@ for CUDA. It imports only the port (`supersurfel_fusion_tpu_torch`), never
 JAX, and:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the TPS kernels (`csrc/tps.cu`, nvcc for sm_90a) from the sources;
+2. builds the TPS kernels (`csrc/tps.cu`) and the ORB detector
+   (`csrc/orb.cu`), nvcc for sm_90a, from the sources;
 3. kernel phase: at 640x480 on a synthetic frame, holds each kernel
    (`tps_iteration`, `tps_merge`) against its plain PyTorch version on the
    same inputs, and the kernel-backed TPS segmentation against the plain
-   one, and times kernel, plain version, bound and library yardstick;
+   one, and times kernel, plain version, bound and library yardstick; then
+   `orb_detect` over the frame's 8-level pyramid against the plain
+   functions (every per-pixel map and cell pick bit for bit), timed beside
+   its bound, its plain version and the whole `detect_and_describe`;
 4. pipeline phase: drives the default `PipelineConfig` frame step through
    `SupersurfelFusion` on a synthetic clip with a known trajectory (its
    stages CUDA graphs from the second frame on), counts the TPS launchers'
@@ -90,6 +94,7 @@ last line. It also exits non-zero when no CUDA device is available.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -232,6 +237,34 @@ def phase_done(name: str, t0: float) -> None:
         raise RuntimeError(f"over the {BUDGET_S:.0f} s budget after {name}")
 
 
+# the hand-written kernels' launcher calls over one pass of a frame step's
+# first two frames: the op-by-op frame and the capture (a CUDA graph's
+# replay runs the kernels without calling their launchers)
+TWO_FRAMES = {"tps_iteration": 20, "tps_merge": 24, "orb_detect": 2}
+
+
+def reset_launches() -> None:
+    """Zero the TPS and ORB launchers' counts."""
+    from supersurfel_fusion_tpu_torch.ops import orb_cuda, tps_cuda
+
+    tps_cuda.reset_launch_counts()
+    orb_cuda.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """The TPS and ORB launchers' calls since `reset_launches`, by
+    kernel."""
+    from supersurfel_fusion_tpu_torch.ops import orb_cuda, tps_cuda
+
+    return {**tps_cuda.launch_counts, **orb_cuda.launch_counts}
+
+
+def first_two_frames(passes: int) -> dict:
+    """The launcher calls of `passes` runs of a frame step from its
+    start."""
+    return {k: passes * v for k, v in TWO_FRAMES.items()}
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -300,14 +333,15 @@ def header():
 
 
 def build():
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
+    from supersurfel_fusion_tpu_torch.ops import orb_cuda, tps_cuda
 
-    t0 = time.time()
-    path, compiler_log = tps_cuda.build_library()
-    log(f"built {path.name} in {time.time() - t0:.2f} s")
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+    for build_library in (tps_cuda.build_library, orb_cuda.build_library):
+        t0 = time.time()
+        path, compiler_log = build_library()
+        log(f"built {path.name} in {time.time() - t0:.2f} s")
+        for line in compiler_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 def kernel_phase(dev):
@@ -507,13 +541,97 @@ def kernel_phase(dev):
     }
 
 
+def orb_phase(dev):
+    """`orb_detect` against its plain version (`features._detect_level`'s
+    functions, on the card) over the 8-level pyramid of a rendered 640x480
+    frame: every per-pixel map and cell pick bit for bit, with Harris
+    ranking on (the main path) and off; then its time beside its bound."""
+    import torch
+
+    from supersurfel_fusion_tpu_torch import synthetic
+    from supersurfel_fusion_tpu_torch.config import PipelineConfig
+    from supersurfel_fusion_tpu_torch.ops import features, orb_cuda
+    from supersurfel_fusion_tpu_torch.utils.color import rgb_to_gray
+
+    cfg = PipelineConfig()
+    vo = cfg.vo
+    R, t = synthetic.trajectory(8)[7]
+    rgb_u8, _ = synthetic.render(cfg.cam, R, t)
+    gray = rgb_to_gray(torch.from_numpy(rgb_u8).to(dev).float()).contiguous()
+    H, W = gray.shape
+    levels = [gray] + [features.resize_bilinear(
+        gray, *features._level_shape(H, W, lvl, vo.scale_factor))
+        for lvl in range(1, vo.nb_levels)]
+    border = features._PATCH_R + 1
+    cell = int(vo.detect_cell)
+    th = (float(vo.ini_th_fast), float(vo.min_th_fast))
+
+    def kernel(harris=True, maps=False):
+        return orb_cuda.detect(levels, cell, border, harris, *th, maps=maps)
+
+    def plain(harris=True):
+        c = vo if harris else dataclasses.replace(vo, harris_rank=False)
+        return [features._detect_level(img, c, border) for img in levels]
+
+    def gap(a, b):
+        """(mismatches, largest absolute difference) of two tensors."""
+        return (int((a != b).sum()),
+                float((a.double() - b.double()).abs().max()))
+
+    max_err = 0.0
+    for harris in (True, False):
+        picks, maps = kernel(harris, maps=True)
+        bad_px = bad_cells = 0
+        for img, m, got, want in zip(levels, maps, picks, plain(harris)):
+            hi, lo, score = features.fast_scores(img, *th)
+            h = features.harris_response(img) if harris else score
+            keys = features._level_keys(hi, lo, score, h, border)
+            for k, ref in enumerate((hi.float(), lo.float(), score, h)
+                                    + keys):
+                n, e = gap(m[k], ref)
+                bad_px, max_err = bad_px + n, max(max_err, e)
+            for a, b in zip(got, want):
+                n, e = gap(a, b)
+                bad_cells, max_err = bad_cells + n, max(max_err, e)
+        val = torch.cat([p[1] for p in picks])
+        log(f"  orb_detect harris={harris}: {bad_px} per-pixel map and "
+            f"{bad_cells} cell-pick mismatches over {len(levels)} levels, "
+            f"{val.numel()} cells, {int((val > 0).sum())} with a corner; "
+            f"largest absolute difference so far {max_err}")
+        check(bad_px == 0 and bad_cells == 0,
+              f"orb_detect (harris={harris}) equals its plain version")
+
+    n_px = sum(img.numel() for img in levels)
+    n_cells = sum(orb_cuda.cell_counts([tuple(i.shape) for i in levels],
+                                       cell))
+    ms = graph_time_ms(kernel, 100)
+    eager = cuda_time_ms(kernel, 100)
+    ms_plain = graph_time_ms(plain, 3)
+    ms_dd = graph_time_ms(lambda: features.detect_and_describe(gray, vo), 3)
+    # each pyramid pixel read once, 16 bytes written per cell; operations
+    # per pixel: FAST 112 (16 differences, two clamped 16-term sums) and
+    # 64 threshold compares, Harris 50 (gradients, products, 2 x 18 box-sum
+    # adds, det, trace, response), the key 12 (8 NMS compares, clamp, 2
+    # adds, a division)
+    ops = n_px * (112 + 64 + 50 + 12)
+    nbytes = n_px * 4 + n_cells * 16
+    bound = max(ops / H100_FP32_FLOPS, nbytes / H100_HBM_BPS) * 1e3
+    log(f"  orb_detect {ms * 1e3:.2f} us device over {n_px} pyramid pixels "
+        f"and {n_cells} cells (eager call {eager * 1e3:.2f} us; plain "
+        f"{ms_plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us, share of "
+        f"bound {bound / ms:.1%}); detect_and_describe {ms_dd:.3f} ms")
+    return {"orb_detect": dict(
+        max_abs_err=max_err, ms=ms, plain_ms=ms_plain, bound_ms=bound,
+        bound_by="operations" if ops / H100_FP32_FLOPS
+        >= nbytes / H100_HBM_BPS else "bytes", library_ms=None)}
+
+
 def pipeline_phase(dev):
     """The default frame step on the card through the user's entry point."""
     import torch
 
     from supersurfel_fusion_tpu_torch import synthetic
     from supersurfel_fusion_tpu_torch.config import PipelineConfig
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
     from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
 
     cfg = PipelineConfig()
@@ -524,7 +642,7 @@ def pipeline_phase(dev):
     slam = SupersurfelFusion(cfg, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tps_cuda.reset_launch_counts()
+    reset_launches()
     outs, frame_s = [], []
     for k, (rgb, depth, _) in enumerate(clip):
         if k == N_FRAMES - 1:    # under a CUDA trace, left out of the times
@@ -536,7 +654,7 @@ def pipeline_phase(dev):
             torch.cuda.synchronize()
             frame_s.append(time.time() - t1)
         outs.append(out)
-    launches = dict(tps_cuda.launch_counts)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     log(f"  launches {launches} over {N_FRAMES} frames, runs in the last "
@@ -696,7 +814,6 @@ def mod_pipeline_phase(dev):
     import torch
 
     from supersurfel_fusion_tpu_torch import synthetic
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
     from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
     from supersurfel_fusion_tpu_torch.tools.profile_frame import mod_config
 
@@ -708,7 +825,7 @@ def mod_pipeline_phase(dev):
     slam = SupersurfelFusion(cfg, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tps_cuda.reset_launch_counts()
+    reset_launches()
     outs, frame_s = [], []
     for k, (rgb, depth, _, _) in enumerate(clip):
         if k == N_FRAMES - 1:    # under a CUDA trace, left out of the times
@@ -720,7 +837,7 @@ def mod_pipeline_phase(dev):
             torch.cuda.synchronize()
             frame_s.append(time.time() - t1)
         outs.append(out)
-    launches = dict(tps_cuda.launch_counts)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     log(f"  launches {launches} over {N_FRAMES} frames, runs in the last "
@@ -824,10 +941,11 @@ def frame_launches(fn):
 
 
 def tps_runs(fn):
-    """(fn(), the TPS kernels' runs on the card during it by kernel), read
-    from a CUDA trace of the call: a CUDA graph's replay runs them without
-    calling their launchers, whose own counts (`tps_cuda.launch_counts`)
-    see the op-by-op frames and the capture alone."""
+    """(fn(), the TPS and ORB kernels' runs on the card during it by
+    kernel), read from a CUDA trace of the call: a CUDA graph's replay runs
+    them without calling their launchers, whose own counts
+    (`tps_cuda.launch_counts`, `orb_cuda.launch_counts`) see the op-by-op
+    frames and the capture alone."""
     import torch
 
     from supersurfel_fusion_tpu_torch.tools.profile_frame import kernel_runs
@@ -837,18 +955,21 @@ def tps_runs(fn):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    runs = kernel_runs(prof, ["tps_iteration_kernel", "tps_merge_kernel"])
+    runs = kernel_runs(prof, ["tps_iteration_kernel", "tps_merge_kernel",
+                              "orb_detect_kernel"])
     return out, {k[:-len("_kernel")]: v for k, v in runs.items()}
 
 
 def check_tps(launches: dict, runs: dict) -> None:
-    """The TPS launchers called on a runner's op-by-op first frame and its
-    capture frame alone (its stages replay as CUDA graphs after), and a
-    replayed frame's trace running 10 iterations and 12 merges."""
-    check(launches == {"tps_iteration": 20, "tps_merge": 24},
-          "TPS launchers called on the first two frames alone")
-    check(runs == {"tps_iteration": 10, "tps_merge": 12},
-          "a replayed frame runs 10 tps_iteration and 12 tps_merge kernels")
+    """The TPS and ORB launchers called on a runner's op-by-op first frame
+    and its capture frame alone (its stages replay as CUDA graphs after),
+    and a replayed frame's trace running 10 iterations, 12 merges and one
+    ORB detection."""
+    check(launches == first_two_frames(1),
+          "TPS and ORB launchers called on the first two frames alone")
+    check(runs == {"tps_iteration": 10, "tps_merge": 12, "orb_detect": 1},
+          "a replayed frame runs 10 tps_iteration and 12 tps_merge kernels "
+          "and one orb_detect")
 
 
 def lc_pipeline_phase(dev):
@@ -859,7 +980,6 @@ def lc_pipeline_phase(dev):
 
     from supersurfel_fusion_tpu_torch import convert, synthetic
     from supersurfel_fusion_tpu_torch.ops import deformation, loop_closure
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
     from supersurfel_fusion_tpu_torch.pipeline import (
         SupersurfelFusion,
         process_frame,
@@ -892,7 +1012,7 @@ def lc_pipeline_phase(dev):
         init_s = time.time() - t1
         solves.clear()                  # the start-up's warm-up solve
         torch.cuda.reset_peak_memory_stats()
-        tps_cuda.reset_launch_counts()
+        reset_launches()
         # the states before each gate frame and before the frame ahead
         # of it are kept for the replays below (two states more on the
         # card at the peak)
@@ -911,7 +1031,7 @@ def lc_pipeline_phase(dev):
             if out.lc_gate and not kept:
                 kept = {k: before, k - 1: prev}
             prev = before
-        launches = dict(tps_cuda.launch_counts)
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         deformation.optimise = orig_opt
@@ -1120,10 +1240,9 @@ def runner_phase(dev):
     from supersurfel_fusion_tpu_torch.eval.trajectory import ate
     from supersurfel_fusion_tpu_torch.io import native_loader
     from supersurfel_fusion_tpu_torch.io.tum import read_trajectory_file
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
 
     clip = synthetic.frames(PipelineConfig().cam, RUNNER_FRAMES)
-    launches = {k: 0 for k in tps_cuda.launch_counts}
+    launches = {k: 0 for k in launch_counts()}
     t0 = time.time()
     try:
         lib = native_loader.build_library()
@@ -1146,12 +1265,12 @@ def runner_phase(dev):
             argv = ["--dataset", seq, "--out", out, "--quiet"] \
                 + (["--loop-closure"] if lc else [])
             buf = io.StringIO()
-            tps_cuda.reset_launch_counts()
+            reset_launches()
             t0 = time.time()
             with contextlib.redirect_stdout(buf):
                 rc = run_benchmark.main(argv)
             wall = time.time() - t0
-            for k, v in tps_cuda.launch_counts.items():
+            for k, v in launch_counts().items():
                 launches[k] += v
             line = buf.getvalue().strip().splitlines()[-1]
             log(f"  runner {' '.join(argv[4:])}: rc {rc} in {wall:.1f} s: "
@@ -1174,8 +1293,9 @@ def runner_phase(dev):
             check(res["loader"] == "native", "runner: frames decoded by the "
                   "native loader (\"loader\": \"native\")")
             fps["lc" if lc else "plain"] = res["fps"]
-    check(launches == {"tps_iteration": 2 * 20, "tps_merge": 2 * 24},
-          "runner: each run calls the TPS launchers on its first two frames "
+    check(launches == first_two_frames(2),
+          "runner: each run calls the TPS and ORB launchers on its first "
+          "two frames "
           "alone (the stages replay as CUDA graphs after)")
     log(f"  runner fps with the native prefetcher ({CARD}): with "
         f"--loop-closure {fps['lc']}, without {fps['plain']}")
@@ -1258,11 +1378,10 @@ def live_phase(dev):
     from supersurfel_fusion_tpu_torch.apps import run_benchmark, run_live
     from supersurfel_fusion_tpu_torch.config import PipelineConfig
     from supersurfel_fusion_tpu_torch.io.tum import read_trajectory_file
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
     from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
 
     clip = synthetic.frames(PipelineConfig().cam, LIVE_FRAMES)
-    launches = {k: 0 for k in tps_cuda.launch_counts}
+    launches = {k: 0 for k in launch_counts()}
     with tempfile.TemporaryDirectory() as tmp:
         seq = os.path.join(tmp, "rgbd_dataset_freiburg1_synthetic")
         stamps = synthetic.write_tum_sequence(seq, clip)
@@ -1272,7 +1391,7 @@ def live_phase(dev):
         seen = []
         watcher = threading.Thread(target=_watch_lines,
                                    args=(live_out, stop, seen))
-        tps_cuda.reset_launch_counts()
+        reset_launches()
         feeder = subprocess.Popen(
             [sys.executable, "-m",
              "supersurfel_fusion_tpu_torch.tools.stream_feeder",
@@ -1304,7 +1423,7 @@ def live_phase(dev):
                     feeder.kill()
                     feeder.wait()
         wall = time.time() - t0
-        for k, v in tps_cuda.launch_counts.items():
+        for k, v in launch_counts().items():
             launches[k] += v
         line = buf.getvalue().strip().splitlines()[-1]
         res = json.loads(line)
@@ -1332,12 +1451,12 @@ def live_phase(dev):
             f"s for {LIVE_FRAMES} frames")
 
         off_out = os.path.join(tmp, "offline.txt")
-        tps_cuda.reset_launch_counts()
+        reset_launches()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc_off = run_benchmark.main(["--dataset", seq, "--out", off_out,
                                          "--quiet"])
-        for k, v in tps_cuda.launch_counts.items():
+        for k, v in launch_counts().items():
             launches[k] += v
         off_fps = json.loads(buf.getvalue().strip().splitlines()[-1])["fps"]
         off = read_trajectory_file(off_out)
@@ -1361,7 +1480,7 @@ def live_phase(dev):
                 and time.time() - t0 < 120:
             time.sleep(0.01)
         buf = io.StringIO()
-        tps_cuda.reset_launch_counts()
+        reset_launches()
         # the host time of the runner's PNG decode and of the frame step's
         # call (which queues the frame's work), per frame
         split = {"decode": [], "process": []}
@@ -1394,7 +1513,7 @@ def live_phase(dev):
                 if feeder.poll() is None:
                     feeder.kill()
                     feeder.wait()
-        for k, v in tps_cuda.launch_counts.items():
+        for k, v in launch_counts().items():
             launches[k] += v
         res2 = json.loads(buf.getvalue().strip().splitlines()[-1])
         dec = np.median(split["decode"][1:]) * 1e3
@@ -1417,23 +1536,23 @@ def live_phase(dev):
         stdin_out = os.path.join(tmp, "stdin.txt")
         old_stdin, buf = sys.stdin, io.StringIO()
         sys.stdin = io.StringIO(lines)
-        tps_cuda.reset_launch_counts()
+        reset_launches()
         try:
             with contextlib.redirect_stdout(buf):
                 rc = run_live.main(["--stdin", "--out", stdin_out,
                                     "--quiet"])
         finally:
             sys.stdin = old_stdin
-        for k, v in tps_cuda.launch_counts.items():
+        for k, v in launch_counts().items():
             launches[k] += v
         got = read_trajectory_file(stdin_out)
         check(rc == 0 and sorted(got) == stamps[:LIVE_STDIN_FRAMES]
               and json.loads(buf.getvalue().strip().splitlines()[-1])
               ["frames"] == LIVE_STDIN_FRAMES,
               f"--stdin: {LIVE_STDIN_FRAMES} frames, one pose line each")
-    check(launches == {"tps_iteration": 4 * 20, "tps_merge": 4 * 24},
-          "live phase: each of the 4 runs calls the TPS launchers on its "
-          "first two frames alone (the stages replay as CUDA graphs after)")
+    check(launches == first_two_frames(4),
+          "live phase: each of the 4 runs calls the TPS and ORB launchers "
+          "on its first two frames alone (the stages replay as CUDA graphs after)")
     return launches, {
         "fps": res["fps"], "fps_unwatched": res2["fps"],
         "decode_ms": float(dec), "process_ms": float(proc),
@@ -1467,7 +1586,6 @@ def _sharded_rank(mesh, n_mod_frames: int) -> dict:
     import torch
 
     from supersurfel_fusion_tpu_torch import synthetic
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
     from supersurfel_fusion_tpu_torch.parallel.pipeline_sharded import (
         init_sharded_state,
         make_process_frame_sharded,
@@ -1515,12 +1633,12 @@ def _sharded_rank(mesh, n_mod_frames: int) -> dict:
 
     cfg = lc_config()
     clip = synthetic.revisit_frames(cfg.cam)
-    tps_cuda.reset_launch_counts()
+    reset_launches()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     state, step, recs, kept, init_s = run(cfg, clip, True)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    launches = dict(tps_cuda.launch_counts)
+    launches = launch_counts()
     waits = {}
     for name, k in (("ordinary", min(kept) if kept else None),
                     ("closure", max(kept) if kept else None)):
@@ -1531,9 +1649,9 @@ def _sharded_rank(mesh, n_mod_frames: int) -> dict:
     # the replays above are not counted: the MOD frames' launches are
     mcfg = mod_config()
     mclip = synthetic.dynamic_frames(mcfg.cam, n_mod_frames)
-    tps_cuda.reset_launch_counts()
+    reset_launches()
     _, _, mrecs, _, _ = run(mcfg, mclip, False)
-    for k, v in tps_cuda.launch_counts.items():
+    for k, v in launch_counts().items():
         launches[k] += v
     return {"lc": recs, "mod": mrecs, "keyframes": int(state.kf_store.db
                                                        .count),
@@ -1627,8 +1745,10 @@ def sharded_phase(d: int, backend: str, single_traj):
     n_mod = SHARD_MOD_FRAMES
     check(all(rk["launches"]["tps_iteration"] == 10 * (n + n_mod)
               and rk["launches"]["tps_merge"] == 12 * (n + n_mod)
+              and rk["launches"]["orb_detect"] == n + n_mod
               for rk in ranks),
-          "every rank: 10 tps_iteration and 12 tps_merge launches per frame")
+          "every rank: 10 tps_iteration, 12 tps_merge and 1 orb_detect "
+          "launches per frame")
     return launches, {
         "traj": traj, "keyframes": r0["keyframes"], "gates": gates,
         "accepted": accepted, "ms_ordinary": float(np.median(ordinary)),
@@ -1662,7 +1782,6 @@ def options_phase(dev):
         FusionConfig,
         PipelineConfig,
     )
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
     from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
     from supersurfel_fusion_tpu_torch.tools.profile_frame import mod_config
 
@@ -1679,7 +1798,7 @@ def options_phase(dev):
             insert_requires_icp=True)), static),
         "heat": (mcfg, dynamic),
     }
-    launches = {k: 0 for k in tps_cuda.launch_counts}
+    launches = {k: 0 for k in launch_counts()}
     summary = {}
     for name, (cfg, clip) in cases.items():
         runs = {}
@@ -1687,13 +1806,13 @@ def options_phase(dev):
             slam = SupersurfelFusion(cfg, device=where)
             if where != "cpu":
                 torch.cuda.synchronize()
-                tps_cuda.reset_launch_counts()
+                reset_launches()
             outs, nbs = [], []
             for k, (rgb, depth) in enumerate(clip):
                 outs.append(slam.process(rgb, depth, timestamp=float(k)))
                 nbs.append(int(slam.state.model.nb_supersurfels))
             if where != "cpu":
-                for k, v in tps_cuda.launch_counts.items():
+                for k, v in launch_counts().items():
                     launches[k] += v
             runs[str(where)] = (np.array(slam.trajectory), outs, nbs,
                                 slam.state)
@@ -1740,7 +1859,7 @@ def nb_samples_phase(dev):
 
     from supersurfel_fusion_tpu_torch import synthetic
     from supersurfel_fusion_tpu_torch.config import PipelineConfig, TPSConfig
-    from supersurfel_fusion_tpu_torch.ops import tps, tps_cuda
+    from supersurfel_fusion_tpu_torch.ops import tps
     from supersurfel_fusion_tpu_torch.pipeline import SupersurfelFusion
 
     cfg = PipelineConfig(tps=TPSConfig(nb_samples=NB_SAMPLES))
@@ -1760,13 +1879,13 @@ def nb_samples_phase(dev):
             slam = SupersurfelFusion(cfg, device=where)
             if where != "cpu":
                 torch.cuda.synchronize()
-                tps_cuda.reset_launch_counts()
+                reset_launches()
             t0 = time.time()
             outs = [slam.process(rgb, depth, timestamp=float(k))
                     for k, (rgb, depth, _) in enumerate(clip)]
             if where != "cpu":
                 torch.cuda.synchronize()
-                launches = dict(tps_cuda.launch_counts)
+                launches = launch_counts()
             runs[str(where)] = (np.array(slam.trajectory), outs,
                                 time.time() - t0)
     finally:
@@ -1786,8 +1905,9 @@ def nb_samples_phase(dev):
           and offs.min() >= -cs / 2 and offs.max() < cs / 2,
           f"nb_samples: the plane init reads a {NB_SAMPLES}-row table on "
           f"both devices")
-    check(launches == {"tps_iteration": 20, "tps_merge": 24},
-          "nb_samples: TPS launchers called on the first two frames alone")
+    check(launches == first_two_frames(1),
+          "nb_samples: TPS and ORB launchers called on the first two frames "
+          "alone")
     check(bool(np.isfinite(tg).all()) and dt < NB_POSE_MAX,
           "nb_samples: card agrees with the plain CPU path (|dt| < 2 mm)")
     return launches, {"dt": dt, "err_max": float(err.max())}
@@ -1828,7 +1948,6 @@ def collect_phase(dev):
 
     from supersurfel_fusion_tpu_torch import synthetic
     from supersurfel_fusion_tpu_torch.config import CameraIntrinsics
-    from supersurfel_fusion_tpu_torch.ops import tps_cuda
     from supersurfel_fusion_tpu_torch.tools import train_person_detector
 
     cam = CameraIntrinsics.tum_fr3()
@@ -1838,12 +1957,12 @@ def collect_phase(dev):
         synthetic.write_tum_sequence(seq, [c[:3] for c in clip])
         out = os.path.join(tmp, "labels.npz")
         torch.cuda.synchronize()
-        tps_cuda.reset_launch_counts()
+        reset_launches()
         t0 = time.time()
         rc = train_person_detector.main(["--collect", "--dataset", seq,
                                          "--out", out])
         wall = time.time() - t0
-        launches = dict(tps_cuda.launch_counts)
+        launches = launch_counts()
         with np.load(out) as lab:
             gray, depth = lab["gray"], lab["depth"]
             boxes, counts = lab["boxes"], lab["counts"]
@@ -1855,8 +1974,9 @@ def collect_phase(dev):
           and gray.dtype == np.uint8 and depth.dtype == np.uint16
           and (start, end) == (0, COLLECT_FRAMES) and len(counts) == n,
           "collect: the label file's layout (frames 2.. of the sequence)")
-    check(launches == {"tps_iteration": 20, "tps_merge": 24},
-          "collect: TPS launchers called on the first two frames alone")
+    check(launches == first_two_frames(1),
+          "collect: TPS and ORB launchers called on the first two frames "
+          "alone")
     hits, per_frame = 0, []
     for i in range(n):
         k = i + 2
@@ -1995,6 +2115,10 @@ def main() -> int:
     phase_done("kernels", t0)
 
     t0 = time.time()
+    kern.update(orb_phase(dev))
+    phase_done("ORB kernel", t0)
+
+    t0 = time.time()
     launches, ms_frame, peak = pipeline_phase(dev)
     phase_done("pipeline", t0)
 
@@ -2059,12 +2183,18 @@ def main() -> int:
     phase_done("detector with the card-trained weights", t0)
 
     rows = []
-    for name in ("tps_iteration", "tps_merge"):
+    for name, source, replaces in (
+            ("tps_iteration", "tps.cu",
+             "supersurfel_fusion_tpu/ops/tps_pallas.py:381"),
+            ("tps_merge", "tps.cu",
+             "supersurfel_fusion_tpu/ops/tps_pallas.py:381"),
+            # the JAX package's ORB detection is plain jnp
+            ("orb_detect", "orb.cu", None)):
         r = kern[name]
         rows.append({
             "name": name, "route": "cuda",
-            "source": "supersurfel_fusion_tpu_torch/csrc/tps.cu",
-            "replaces": "supersurfel_fusion_tpu/ops/tps_pallas.py:381",
+            "source": f"supersurfel_fusion_tpu_torch/csrc/{source}",
+            "replaces": replaces,
             # every pipeline phase: the default, MOD and loop-closure
             # frame steps, the runner's and the live runner's runs, the
             # sharded steps, the options, nb_samples and collect phases

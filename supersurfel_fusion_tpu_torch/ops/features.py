@@ -10,6 +10,10 @@ triangle kernel widened by the downscale factor, i.e. antialiased) with the
 same f32 weight matrices, and the Harris box filter keeps the JAX package's
 float-identical shift form: a reordered sum can flip per-cell argmax picks.
 Descriptors are (K, 8) 32-bit words carried as int32 bit patterns.
+
+On the card the per-pixel detection of all levels (FAST, Harris, NMS, keys
+and the per-cell picks) is one launch of the ORB kernel (`orb_cuda`,
+`csrc/orb.cu`), bit-equal to the plain functions here, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from supersurfel_fusion_tpu_torch import tracing
 from supersurfel_fusion_tpu_torch.config import VOConfig
+from supersurfel_fusion_tpu_torch.ops import orb_cuda
 from supersurfel_fusion_tpu_torch.ops.depth import shift2d
 from supersurfel_fusion_tpu_torch.ops.tps import _iota
 
@@ -180,9 +185,9 @@ def _top_k(x: Tensor, k: int):
     return vals[:k], idx[:k]
 
 
-def _select_level_keypoints(corner_hi, corner_lo, score, harris,
-                            k_budget: int, border: int, cell: int):
-    """FAST-score 3x3 NMS + Harris-ranked per-cell argmax + top-k."""
+def _level_keys(corner_hi, corner_lo, score, harris, border: int):
+    """FAST-score 3x3 NMS, the border mask and the Harris key of every
+    pixel of a level: (key_hi, key_lo), 0 where a pixel is no candidate."""
     H, W = score.shape
     y, x = _iota(H, W, score.device, torch.int32)
     in_border = (x >= border) & (x < W - border) & (y >= border) \
@@ -198,7 +203,15 @@ def _select_level_keypoints(corner_hi, corner_lo, score, harris,
     zero = torch.zeros_like(hkey)
     key_hi = torch.where(corner_hi & in_border & nms, hkey, zero)
     key_lo = torch.where(corner_lo & in_border & nms, hkey, zero)
+    return key_hi, key_lo
 
+
+def _cell_picks(key_hi, key_lo, cell: int):
+    """Per-cell argmax of both keys over the zero-padded cell grid, and the
+    pick of the two: (best_in_cell int64, best_val, rank), one per cell,
+    row-major. A cell with a `key_hi` candidate ranks 1000 above any
+    without."""
+    H, W = key_hi.shape
     Hp = (H + cell - 1) // cell * cell
     Wp = (W + cell - 1) // cell * cell
 
@@ -216,12 +229,40 @@ def _select_level_keypoints(corner_hi, corner_lo, score, harris,
     best_in_cell = torch.where(use_hi, ihi, ilo)
     best_val = torch.where(use_hi, vhi, vlo)
     rank = best_val + use_hi.to(torch.float32) * 1000.0
+    return best_in_cell, best_val, rank
 
+
+def _detect_level(img: Tensor, cfg: VOConfig, border: int):
+    """The plain version of the ORB kernel on one level: FAST, Harris (or
+    the FAST score), keys and the per-cell picks."""
+    hi, lo, score = fast_scores(img, float(cfg.ini_th_fast),
+                                float(cfg.min_th_fast))
+    harris = harris_response(img) if cfg.harris_rank else score
+    return _cell_picks(*_level_keys(hi, lo, score, harris, border),
+                       int(cfg.detect_cell))
+
+
+def detect_cells(levels: List[Tensor], cfg: VOConfig, border: int):
+    """Per level, per detection cell: (best_in_cell, best_val, rank). On
+    CUDA tensors one launch of the ORB kernel for all levels
+    (`orb_cuda.detect`, bit-equal to the plain version); on CPU tensors the
+    plain functions level by level."""
+    if levels[0].device.type == "cpu":
+        return [_detect_level(img, cfg, border) for img in levels]
+    picks, _ = orb_cuda.detect(
+        levels, int(cfg.detect_cell), border, cfg.harris_rank,
+        float(cfg.ini_th_fast), float(cfg.min_th_fast))
+    return picks
+
+
+def _top_cells(best_in_cell, best_val, rank, W: int, k_budget: int,
+               cell: int):
+    """The level's k_budget best-ranked cells: (cx, cy, val, valid)."""
     k = min(k_budget, best_val.shape[0])
     _, top_cell = _top_k(rank, k)
     top_val = best_val[top_cell]
     flat = best_in_cell[top_cell]
-    ncw = Wp // cell
+    ncw = (W + cell - 1) // cell
     cy = (top_cell // ncw) * cell + flat // cell
     cx = (top_cell % ncw) * cell + flat % cell
     valid = top_val > 0.0
@@ -323,22 +364,22 @@ def detect_and_describe(gray: Tensor, cfg: VOConfig) -> Keypoints:
     H0, W0 = gray.shape
     dev = gray.device
 
+    border = _PATCH_R + 1
+    cell = int(cfg.detect_cell)
+    with tracing.span("features.score"):
+        levels = [gray.contiguous()] + [
+            resize_bilinear(gray, *_level_shape(H0, W0, lvl,
+                                                cfg.scale_factor))
+            for lvl in range(1, cfg.nb_levels)]
+        picks = detect_cells(levels, cfg, border)
+
     all_xy, all_level, all_angle, all_score, all_valid, all_desc = (
         [], [], [], [], [], [])
-    img = gray
-    for lvl in range(cfg.nb_levels):
+    for lvl, img in enumerate(levels):
         scale = cfg.scale_factor**lvl
-        with tracing.span("features.score"):
-            if lvl > 0:
-                img = resize_bilinear(gray, *_level_shape(H0, W0, lvl,
-                                                          cfg.scale_factor))
-            hi, lo, score = fast_scores(img, float(cfg.ini_th_fast),
-                                        float(cfg.min_th_fast))
-            harris = harris_response(img) if cfg.harris_rank else score
         with tracing.span("features.select"):
-            cx, cy, val, valid = _select_level_keypoints(
-                hi, lo, score, harris, budgets[lvl], border=_PATCH_R + 1,
-                cell=int(cfg.detect_cell))
+            cx, cy, val, valid = _top_cells(*picks[lvl], img.shape[1],
+                                            budgets[lvl], cell)
         with tracing.span("features.describe"):
             patches = _extract_patches(img, cx, cy)
             angle = _orientations(patches)

@@ -70,27 +70,30 @@ def _find_nvcc() -> str:
         cand = os.path.join(home, "bin", "nvcc")
         nvcc = cand if os.path.exists(cand) else None
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the TPS CUDA kernels cannot be "
-                           "built (set CUDA_HOME or put nvcc on PATH)")
+        raise RuntimeError("nvcc not found: the port's CUDA kernels cannot "
+                           "be built (set CUDA_HOME or put nvcc on PATH)")
     return nvcc
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile `csrc/tps.cu` into `_build/` unless the library for this
-    source and these flags exists. Returns (path, compiler log). The build
-    writes a temporary file and renames it, so a killed build never leaves
-    a half-written library under the final name."""
-    src = SOURCE.read_bytes()
+def build_library(source: Path = SOURCE) -> tuple[Path, str]:
+    """Compile one CUDA source of the port (`csrc/tps.cu` by default) into
+    `_build/lib<source stem>_<key>.so` unless the library for this source
+    and these flags exists. Returns (path, compiler log). The build writes a
+    temporary file and renames it, so a killed build never leaves a
+    half-written library under the final name."""
+    src = source.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libtps_{key}.so"
+    name = source.stem
+    out = BUILD_DIR / f"lib{name}_{key}.so"
     if out.exists():
         return out, ""
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".libtps_", suffix=".so")
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".lib{name}_",
+                               suffix=".so")
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
